@@ -1,0 +1,109 @@
+"""Paged BA-CAM decode: binary scoring + stage-1 top-k, CUDA on the card.
+
+Replaces the TPU kernel ``kernels/bacam_decode.py::bacam_paged_topk_stage1``
+of the reference package (body ``kernels/bacam_topk.py::score_and_stage1``).
+The CUDA source is ``csrc/bacam_decode.cu``; its header states the design.
+
+Bound on the card: at the serving shapes (8 slots, 16 kv heads, 64-key
+pages, one row per kv head) the live packed keys are about 0.5 MB per
+layer, well under a microsecond of HBM time, so the kernel is bounded by
+launch latency.  It runs as one launch per layer and writes only the
+stage-1 candidates; the score matrix never reaches device memory.
+
+A tensor on the CPU takes the plain version (``ref.bacam_paged_topk_ref``);
+a CUDA tensor launches the kernel or raises.  ``launches`` counts kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import bacam_paged_topk_ref
+
+__all__ = ["bacam_paged_topk_stage1", "bacam_paged_topk_ref", "launches"]
+
+launches = 0  # kernel launches (plain-version calls are not counted)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+_fn = None
+
+
+def _entry():
+    global _fn
+    if _fn is None:
+        fn = build.load("bacam_decode").bacam_paged_topk_stage1
+        fn.argtypes = [_P] * 7 + [_I] * 12 + [_P]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(name, t, device, dtype, shape):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def bacam_paged_topk_stage1(q_packed, kp_pages, page_table, kv_len, q_pos, *,
+                            d: int, group: int = 16, stage1_k: int = 2,
+                            window: int | None = None):
+    """Fused paged binary scoring + stage-1 top-k for decode rows.
+
+    q_packed: (B, H_kv, R, W) int32 packed query rows; kp_pages:
+    (P, H_kv, page, W) int32 packed key pool; page_table: (B, NP) int32;
+    kv_len, q_pos: (B,) int32.  Returns (cand_vals, cand_idx) of shape
+    (B, H_kv, R, stage1_k * NP * page / group) int32, logical-page-major;
+    masked candidates hold MASKED_SCORE (their indices are unspecified).
+    """
+    if not q_packed.is_cuda:
+        return bacam_paged_topk_ref(
+            q_packed, kp_pages, page_table, kv_len, d, q_pos=q_pos,
+            group_size=group, stage1_k=stage1_k, window=window)
+    global launches
+    b, hkv, rows, words = q_packed.shape
+    n_pages, _, page, _ = kp_pages.shape
+    np_ = page_table.shape[1]
+    dev = q_packed.device
+    i32 = torch.int32
+    _check("q_packed", q_packed, dev, i32, (b, hkv, rows, words))
+    _check("kp_pages", kp_pages, dev, i32, (n_pages, hkv, page, words))
+    _check("page_table", page_table, dev, i32, (b, np_))
+    _check("kv_len", kv_len, dev, i32, (b,))
+    _check("q_pos", q_pos, dev, i32, (b,))
+    if words * 32 != d or words > 8:
+        raise ValueError(f"d={d} must be 32 * W with W <= 8, got W={words}")
+    if group < 1 or group > 32 or group & (group - 1):
+        raise ValueError(f"group={group} must be a power of two <= 32")
+    if page % group or page > 1024:
+        raise ValueError(f"page={page} must tile by group={group}, <= 1024")
+    if not 1 <= stage1_k <= group:
+        raise ValueError(f"stage1_k={stage1_k} must be in [1, group]")
+    ncand = stage1_k * (page // group) * np_
+    vals = torch.empty((b, hkv, rows, ncand), dtype=i32, device=dev)
+    idx = torch.empty((b, hkv, rows, ncand), dtype=i32, device=dev)
+    if vals.numel() == 0:
+        return vals, idx
+    with torch.cuda.device(dev):
+        err = _entry()(
+            q_packed.data_ptr(), kp_pages.data_ptr(), page_table.data_ptr(),
+            kv_len.data_ptr(), q_pos.data_ptr(), vals.data_ptr(),
+            idx.data_ptr(), b, hkv, rows, words, n_pages, page, np_, d,
+            group, stage1_k, int(window is not None),
+            int(window or 0), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"bacam_paged_topk_stage1 launch failed: CUDA "
+                           f"error {err}")
+    launches += 1
+    return vals, idx

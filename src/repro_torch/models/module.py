@@ -1,0 +1,106 @@
+"""Parameters of the decoder-only LM: shapes, seeded init and casting.
+
+The parameter tree mirrors the reference's ``lm_specs`` leaf for leaf,
+with one difference of layout: the reference stacks block parameters
+along a leading ``layers`` axis for ``lax.scan``, while the port keeps
+``blocks`` as a list of per-layer dicts (its layer loop is a Python
+loop).  Matrices keep the (in, out) layout and are applied as ``x @ W``.
+
+    {"embed": {"tok": (V_pad, d), "head": (d, V_pad)},
+     "blocks": [{"ln1": {"scale"}, "attn": {"wq", "wk", "wv", "wo"
+                 [, "bq", "bk", "bv"]}, "ln2": {"scale"},
+                 "ffn": {"w_gate", "w_up", "w_down"}}, ...],
+     "ln_f": {"scale"}}
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import resolve_device
+
+__all__ = ["block_shapes", "init_params", "cast_params", "count_params"]
+
+
+def _check_supported(cfg):
+    if cfg.family not in ("dense",) or cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name!r} (family {cfg.family!r}): only the dense "
+            "decoder-only LM is ported")
+    if cfg.act != "silu" or cfg.abs_pos or not cfg.use_rope:
+        raise NotImplementedError(
+            f"{cfg.name!r}: only the gated-silu, RoPE transformer is ported")
+
+
+def block_shapes(cfg) -> dict:
+    """{module: {leaf: (shape, init)}} of one transformer block."""
+    d, q, kv, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    norm = {"scale": ((d,), "ones")}
+    if cfg.norm == "layer":
+        norm["bias"] = ((d,), "zeros")
+    attn = {"wq": ((d, q), "normal"), "wk": ((d, kv), "normal"),
+            "wv": ((d, kv), "normal"), "wo": ((q, d), "normal")}
+    if cfg.qkv_bias:
+        attn.update(bq=((q,), "zeros"), bk=((kv,), "zeros"),
+                    bv=((kv,), "zeros"))
+    ffn = {"w_gate": ((d, f), "normal"), "w_up": ((d, f), "normal"),
+           "w_down": ((f, d), "normal")}
+    return {"ln1": dict(norm), "attn": attn, "ln2": dict(norm), "ffn": ffn}
+
+
+def _leaf(shape, init, gen, device, std=None):
+    if init == "zeros":
+        return torch.zeros(shape, device=device)
+    if init == "ones":
+        return torch.ones(shape, device=device)
+    if std is None:  # fan-in scaled normal over the in-features axis
+        std = (1.0 / max(1, shape[0])) ** 0.5
+    return torch.randn(shape, generator=gen, device=device) * std
+
+
+def init_params(cfg, generator: torch.Generator | None = None,
+                device="cuda", *, seed: int = 0) -> dict:
+    """Random float32 parameters drawn from a ``torch.Generator``.
+
+    The distributions are the reference's (``models/module.py``):
+    fan-in scaled normals for matrices, N(0, d_model**-0.5) for the token
+    embedding, ones/zeros for norms and biases.  The numbers differ from
+    the reference's, which draws from ``jax.random``.
+    """
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(seed)
+    v, d = cfg.padded_vocab, cfg.d_model
+    embed = {"tok": _leaf((v, d), "embed", generator, dev, std=d**-0.5)}
+    if not cfg.tie_embeddings:
+        embed["head"] = _leaf((d, v), "normal", generator, dev)
+    blocks = []
+    for _ in range(cfg.n_layers):
+        blocks.append({
+            mod: {name: _leaf(shape, init, generator, dev)
+                  for name, (shape, init) in leaves.items()}
+            for mod, leaves in block_shapes(cfg).items()})
+    ln_f = {"scale": torch.ones((d,), device=dev)}
+    if cfg.norm == "layer":
+        ln_f["bias"] = torch.zeros((d,), device=dev)
+    return {"embed": embed, "blocks": blocks, "ln_f": ln_f}
+
+
+def cast_params(params, dtype, device=None):
+    """Compute-precision copy: every floating leaf cast to ``dtype`` (and
+    moved to ``device`` when given), once, before serving."""
+    if isinstance(params, dict):
+        return {k: cast_params(v, dtype, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [cast_params(v, dtype, device) for v in params]
+    t = params if device is None else params.to(device)
+    return t.to(dtype) if t.is_floating_point() else t
+
+
+def count_params(params) -> int:
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return params.numel()

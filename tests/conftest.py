@@ -12,3 +12,7 @@ def pytest_configure(config):
         "markers",
         "slow: long-running system/e2e tests (CI fast lane runs -m 'not slow')",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card; skips without one (run on the card)",
+    )
