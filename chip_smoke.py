@@ -5,28 +5,38 @@
 Phases, in order (each raises on failure; nothing is caught):
 
   1. the card's name and power limit (``nvidia-smi``);
-  2. build both CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+  2. build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
      per source, started together) into ``build/``;
-  3. kernels: at the serving shapes, each kernel against its plain
-     PyTorch version on the same inputs on the card (bit-exact for the
-     integer CAM candidates, 1e-5 for the flash rows), then CUDA-event
+  3. kernels: at the shapes of the paths below, each kernel against its
+     plain PyTorch version on the same inputs on the card (bit-exact for
+     integer scores, CAM candidates and bit-sliced products; 1e-5 for the
+     f32 flash rows, 2**-7 for bf16 contiguous flash), then CUDA-event
      times of kernel, plain version and one PyTorch library call;
-  4. parity: a small-width model's logits on the card (kernel path)
-     against the same model on the CPU (plain path);
-  5. slice: ``camformer-bert`` at full width in bf16 with seeded random
-     weights, served by ``ServeEngine`` (8 slots, 1024 tokens, overlap
-     mode) for 8 greedy requests, once on ``camformer`` and once on
-     ``dense``, checking finish reasons, tick errors, one readback per
-     tick and that each kernel of the path was launched.
+  4. parity: small-width models on the card (kernel path) against the
+     same models on the CPU (plain path): the paged forward, and the
+     contiguous ``lm_prefill`` + 8 ``lm_decode`` steps;
+  5. paged slice: ``camformer-bert`` at full width in bf16 with seeded
+     random weights, served by ``ServeEngine`` (8 slots, 1024 tokens,
+     overlap mode) for 8 greedy requests, once on ``camformer`` and once
+     on ``dense``, checking finish reasons, tick errors, one readback per
+     tick and that each kernel of the path was launched;
+  6. contiguous slice: the same model with ``use_kernel`` through
+     ``make_prefill_step`` / ``make_serve_step``, 8 prompts of 896 tokens
+     in a 1024-token cache: (a) whole-prompt prefill and 127 greedy
+     decode steps, (b) ``prefill_chunk=128`` (7 chunks) and 31 steps,
+     checking each kernel's launch count and that no plain version ran
+     on the card.
 
-The line before the last is the ``kernels`` JSON object; the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
-rest of the repository next to this file, it exits non-zero and prints no
-result.
+The line before the last is the ``kernels`` JSON object (one row per
+kernel; ``path`` names the run that launches it: ``paged``,
+``contiguous`` or ``none``); the last line is ``{"ok": true, "device":
+{...}}``.  Without a CUDA card, or without the rest of the repository
+next to this file, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -55,7 +65,10 @@ def log(*a):
 
 def cuda_ms(fn, *, n=30, warmup=3, flush=None):
     """Median CUDA-event time of fn() in ms; ``flush`` (a large buffer)
-    is overwritten before every timed launch so L2 starts cold."""
+    is overwritten before every timed launch so L2 starts cold.  A 1 ms
+    device spin before the start event keeps the card busy while the host
+    enqueues fn's work, so a slow host (Python wrapper, shared cores)
+    adds no idle gap to a microsecond kernel's time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -63,6 +76,7 @@ def cuda_ms(fn, *, n=30, warmup=3, flush=None):
     for _ in range(n):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(2_000_000)  # about 1 ms of cycles
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -97,6 +111,71 @@ def close(got, want, tol):
     err = (got.float() - want.float()).abs()
     bad = err > tol + tol * want.float().abs()
     return float(err.max()), not bool(bad.any())
+
+
+# ---------------------------------------------------------------------------
+# launch counts and plain-version calls
+
+
+def kernel_modules():
+    """{kernel wrapper module: the name of its plain version in it}."""
+    from repro_torch.kernels import (bacam_decode, bacam_mvm, bacam_topk,
+                                     bitslice_vmm, flash_attention,
+                                     paged_flash_decode)
+
+    return {bacam_decode: "bacam_paged_topk_ref",
+            paged_flash_decode: "paged_flash_decode_ref",
+            bacam_topk: "bacam_topk_stage1_plain",
+            bacam_mvm: "bacam_scores_ref",
+            bitslice_vmm: "bitslice_vmm_ref",
+            flash_attention: "flash_attention_ref"}
+
+
+def reset_launches():
+    from repro_torch.kernels import paged_flash_decode
+
+    for mod in kernel_modules():
+        mod.launches = 0
+    paged_flash_decode.prefill_launches = 0
+
+
+def read_launches():
+    """Launches since the last reset, by the kernels line's row names."""
+    from repro_torch.kernels import (bacam_decode, bacam_mvm, bacam_topk,
+                                     bitslice_vmm, flash_attention,
+                                     paged_flash_decode)
+
+    pfd = paged_flash_decode
+    return {"bacam_paged_topk_stage1": bacam_decode.launches,
+            "paged_flash_decode": pfd.launches - pfd.prefill_launches,
+            "paged_flash_decode (sq>1)": pfd.prefill_launches,
+            "bacam_topk_stage1": bacam_topk.launches,
+            "bacam_mvm": bacam_mvm.launches,
+            "bitslice_vmm": bitslice_vmm.launches,
+            "flash_attention": flash_attention.launches}
+
+
+@contextlib.contextmanager
+def plain_calls_on_card():
+    """Count, by name, the calls of every kernel's plain version that get
+    a CUDA tensor while the block runs (a path run must make none)."""
+    calls = {}
+    saved = {}
+    for mod, name in kernel_modules().items():
+        fn = getattr(mod, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            if any(torch.is_tensor(x) and x.is_cuda for x in a):
+                calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **kw)
+
+        saved[mod] = (name, fn)
+        setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, (name, fn) in saved.items():
+            setattr(mod, name, fn)
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +240,7 @@ def kernel_phase(flush):
               + table.numel() * 4 + 2 * b * 4 + 2 * b * hkv * r * ncand * 4)
     ops = 3 * keys * hkv * r * (d // 32)  # xor, popc, add per word
     rows.append(dict(
-        name="bacam_paged_topk_stage1", route="cuda",
+        name="bacam_paged_topk_stage1", route="cuda", path="paged",
         source="src/repro_torch/csrc/bacam_decode.cu",
         replaces="src/repro/kernels/bacam_decode.py:137",
         max_abs_err=0.0, ms=cuda_ms(kern, flush=flush),
@@ -208,7 +287,7 @@ def kernel_phase(flush):
         # QK^T and PV, 2 FLOPs per multiply-add, over causal (row, key)
         flops = 2 * 2 * causal_keys(kv_len, q_pos, sq) * hkv * d
         rows.append(dict(
-            name=name, route="cuda",
+            name=name, route="cuda", path="paged",
             source="src/repro_torch/csrc/paged_flash_decode.cu",
             replaces="src/repro/kernels/paged_flash_decode.py:228",
             max_abs_err=err, ms=cuda_ms(kern, flush=flush),
@@ -269,6 +348,187 @@ def library_attention(a, sq):
                                                   scale=1.0)
 
 
+# the contiguous slice: 8 prompts of 896 tokens in a 1024-token cache
+CONTIG_B, CONTIG_PROMPT, CONTIG_CACHE = 8, 896, 1024
+CONTIG_DECODE, CONTIG_CHUNK, CONTIG_CHUNK_DECODE = 127, 128, 31
+FLASH_BF16_TOL = 2**-7  # one bf16 rounding step of an f32 result
+
+
+def contiguous_kernel_phase(flush):
+    """The contiguous path's kernels at its own shapes (camformer-bert:
+    8 prompts x 16 kv heads = 128 (b, kv head) rows, d = 64), and the two
+    kernels that no model path runs (bit-sliced VMM, contiguous flash
+    attention) at the same widths."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import bacam_mvm as bmvm
+    from repro_torch.kernels import bacam_topk as btk
+    from repro_torch.kernels import bitslice_vmm as bsv
+    from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels.ref import MASKED_SCORE
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    bh, w, d = CONTIG_B * 16, 2, 64
+
+    def words(*shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    # --- bacam_mvm at the whole-prompt prefill: (128, 896, 896), W = 2
+    s = CONTIG_PROMPT
+    q, k = words(bh, s, w), words(bh, s, w)
+    got = bmvm.bacam_mvm(q, k, d=d)
+    want = bmvm.bacam_scores_ref(q, k, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), "bacam_mvm differs from its plain version"
+    log(f"bacam_mvm ({bh}, {s}, {s}) W={w}: bit-exact")
+    from repro_torch.core.bacam import unpack_bits
+
+    qf = unpack_bits(q, d).to(torch.bfloat16)  # the same ±1 operands
+    kf = unpack_bits(k, d).to(torch.bfloat16)
+    assert torch.equal(torch.matmul(qf, kf.transpose(1, 2)).to(torch.int32),
+                       got), "bf16 matmul yardstick is not exact"
+    outputs = bh * s * s
+    rows.append(dict(
+        name="bacam_mvm", route="cuda", path="contiguous",
+        source="src/repro_torch/csrc/bacam_mvm.cu",
+        replaces="src/repro/kernels/bacam_mvm.py:62", max_abs_err=0.0,
+        ms=cuda_ms(lambda: bmvm.bacam_mvm(q, k, d=d), flush=flush),
+        plain_ms=cuda_ms(lambda: bmvm.bacam_scores_ref(q, k, d),
+                         flush=flush),
+        # each input read once, the int32 scores written once; xor, popc
+        # and add per word of each score
+        **bound(2 * bh * s * w * 4 + outputs * 4,
+                3 * w * outputs / INT32_OP_PER_S),
+        library_ms=cuda_ms(lambda: torch.matmul(qf, kf.transpose(1, 2)),
+                           flush=flush)))
+    del got, want, qf, kf
+
+    # --- bacam_topk_stage1: a decode step (R = 1, ragged kv_len up to
+    # 1024, q_pos = kv_len - 1), timed; then the last 128-row chunk of the
+    # chunked prefill (q_pos 768..895, kv_len 896), checked and timed
+    lens = torch.tensor([1024, 1000, 897, 960, 1023, 900, 512, 1],
+                        dtype=torch.int32, device=dev)[:CONTIG_B]
+    k = words(bh, CONTIG_CACHE, w)
+    cases = []
+    kv_len = lens.repeat_interleave(16)
+    cases.append(("decode step", words(bh, 1, w),
+                  (kv_len - 1)[:, None].contiguous(), kv_len))
+    c0 = CONTIG_PROMPT - CONTIG_CHUNK
+    pos = (c0 + torch.arange(CONTIG_CHUNK, dtype=torch.int32, device=dev))
+    cases.append(("prefill chunk", words(bh, CONTIG_CHUNK, w),
+                  pos[None].expand(bh, -1).contiguous(),
+                  torch.full((bh,), CONTIG_PROMPT, dtype=torch.int32,
+                             device=dev)))
+    times = {}
+    for label, qq, q_pos, kvl in cases:
+        kw = dict(d=d, group=16, stage1_k=2, causal=True)
+        got_v, got_i = btk.bacam_topk_stage1(qq, k, q_pos, kvl, **kw)
+        want_v, want_i = btk.bacam_topk_stage1_plain(qq, k, q_pos, kvl, **kw)
+        torch.cuda.synchronize()
+        valid = want_v > MASKED_SCORE // 2
+        assert torch.equal(got_v, want_v), f"bacam_topk values ({label})"
+        assert torch.equal(got_i[valid], want_i[valid]), \
+            f"bacam_topk indices on valid candidates ({label})"
+        times[label] = (
+            cuda_ms(lambda: btk.bacam_topk_stage1(qq, k, q_pos, kvl, **kw),
+                    flush=flush),
+            cuda_ms(lambda: btk.bacam_topk_stage1_plain(qq, k, q_pos, kvl,
+                                                        **kw), flush=flush))
+        # the live keys each row needs, read once per (b, kv head) row set
+        pairs = int(torch.minimum(kvl[:, None], q_pos + 1).clamp(
+            min=0).sum())
+        live = int(torch.clamp(torch.minimum(kvl, q_pos.max(1).values + 1),
+                               min=0).sum())
+        bytes_ = (qq.numel() * 4 + live * w * 4 + q_pos.numel() * 4
+                  + kvl.numel() * 4 + 2 * got_v.numel() * 4)
+        times[label] += (bound(bytes_, 3 * w * pairs / INT32_OP_PER_S),)
+        log(f"bacam_topk_stage1 {label} ({bh} x {qq.shape[1]} rows, "
+            f"{CONTIG_CACHE} keys): bit-exact ({int(valid.sum())} valid "
+            f"candidates), kernel {times[label][0]:.6g} ms, plain "
+            f"{times[label][1]:.6g} ms, bound {times[label][2]}")
+    ms, plain, bd = times["decode step"]
+    rows.append(dict(
+        name="bacam_topk_stage1", route="cuda", path="contiguous",
+        source="src/repro_torch/csrc/bacam_topk.cu",
+        replaces="src/repro/kernels/bacam_topk.py:154", max_abs_err=0.0,
+        ms=ms, plain_ms=plain, **bd, library_ms=None))
+
+    # --- bitslice_vmm at bits 4 and 8 on (128, 896, 64) x (128, 896, 64)
+    n = CONTIG_PROMPT
+    x = torch.where(torch.randn((bh, n, d), generator=gen, device=dev) > 0,
+                    1.0, -1.0)
+    for bits in (4, 8):
+        wi = torch.randint(-(2 ** (bits - 1)), 2 ** (bits - 1), (bh, n, d),
+                           generator=gen, device=dev, dtype=torch.int32)
+        got = bsv.bitslice_vmm(x, wi, bits=bits)
+        want = bsv.bitslice_vmm_ref(x, wi, bits)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"bitslice_vmm bits={bits} differs"
+        wf = wi.to(torch.float32)
+        times[bits] = (
+            cuda_ms(lambda: bsv.bitslice_vmm(x, wi, bits=bits), flush=flush),
+            cuda_ms(lambda: bsv.bitslice_vmm_ref(x, wi, bits), flush=flush),
+            # f32 (no TF32): exact, |sums| <= 64 * 128 < 2**24
+            cuda_ms(lambda: torch.matmul(x, wf.transpose(1, 2)),
+                    flush=flush))
+        log(f"bitslice_vmm bits={bits} ({bh}, {n}, {d}) x ({bh}, {n}, {d}):"
+            f" bit-exact, kernel loop {times[bits][0]:.6g} ms, plain "
+            f"{times[bits][1]:.6g} ms, f32 matmul {times[bits][2]:.6g} ms")
+    outputs = bh * n * n
+    ms, plain, lib = times[8]
+    rows.append(dict(
+        name="bitslice_vmm", route="cuda", path="none",
+        source="src/repro_torch/kernels/bitslice_vmm.py (loops "
+               "src/repro_torch/csrc/bacam_mvm.cu)",
+        replaces="src/repro/kernels/bitslice_vmm.py:29", max_abs_err=0.0,
+        ms=ms, plain_ms=plain,
+        # x (f32) and w (int32) read once, int32 y written once; per plane
+        # and output: xor, popc, add per word, then d - 2m, + row_sum,
+        # // 2 and the weighted add
+        **bound(x.numel() * 4 + wi.numel() * 4 + outputs * 4,
+                8 * (3 * w + 4) * outputs / INT32_OP_PER_S),
+        library_ms=lib))
+    del x, wi, wf, got, want
+
+    # --- flash_attention at (128, 1024, 64), causal, f32 and bf16
+    sq = CONTIG_CACHE
+    qkv = [torch.randn((bh, sq, d), generator=gen, device=dev)
+           for _ in range(3)]
+    pairs = sq * (sq + 1) // 2
+    for dtype, tol in ((torch.float32, 1e-5),
+                       (torch.bfloat16, FLASH_BF16_TOL)):
+        a = [t.to(dtype) for t in qkv]
+        got = fla.flash_attention(*a, causal=True)
+        want = fla.flash_attention_ref(*a, causal=True)
+        err, ok = close(got, want, tol)
+        assert ok, f"flash_attention {dtype}: max abs err {err}"
+        times[dtype] = (
+            err, cuda_ms(lambda: fla.flash_attention(*a, causal=True),
+                         flush=flush),
+            cuda_ms(lambda: fla.flash_attention_ref(*a, causal=True),
+                    flush=flush),
+            # SDPA on (1, heads, S, D): its fused kernels take 4-D inputs
+            cuda_ms(lambda: F.scaled_dot_product_attention(
+                *(t[None] for t in a), is_causal=True), flush=flush),
+            bound(4 * a[0].numel() * a[0].element_size(),
+                  4 * pairs * d * bh / F32_FLOP_PER_S))
+        log(f"flash_attention ({bh}, {sq}, {d}) causal {dtype}: max abs err "
+            f"{err:.3g} (tol {tol:.3g} rel+abs), kernel {times[dtype][1]:.6g}"
+            f" ms, plain {times[dtype][2]:.6g} ms, SDPA "
+            f"{times[dtype][3]:.6g} ms, bound {times[dtype][4]}")
+    err, ms, plain, lib, bd = times[torch.float32]
+    rows.append(dict(
+        name="flash_attention", route="cuda", path="none",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:104",
+        max_abs_err=err, ms=ms, plain_ms=plain, **bd, library_ms=lib))
+    torch.cuda.synchronize()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: small-width parity, card against CPU
 
@@ -319,33 +579,65 @@ def parity_phase():
                 f"err {err:.3g} (tol 1e-4)")
 
 
+def contiguous_parity_phase():
+    """lm_prefill + 8 lm_decode steps of the smoke camformer-bert with
+    use_kernel on the card (kernels) and on the CPU (plain versions),
+    both fed the CPU's greedy picks: logits within 1e-4 and the card's
+    own picks identical."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import (cast_params, init_params, init_pools,
+                                    lm_cache_specs, make_model_def)
+
+    cfg = smoke_config("camformer-bert", use_kernel=True)
+    md = make_model_def()
+    prefill, serve = make_prefill_step(md, cfg), make_serve_step(md, cfg)
+    params = init_params(cfg, device="cpu", seed=SEED)
+    b, s, steps = 3, 24, 8
+    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab, (b, s))
+    logits, fed = {}, []
+    for devname in ("cpu", "cuda"):
+        dev = torch.device(devname)
+        p = cast_params(params, torch.float32, dev)
+        caches = init_pools(lm_cache_specs(cfg, b, s + steps), dev)
+        lg, caches = prefill(p, {"tokens": torch.from_numpy(tokens).to(dev)},
+                             caches)
+        out = [lg]
+        pos = torch.full((b,), s, dtype=torch.int32, device=dev)
+        for step in range(steps):
+            if devname == "cpu":
+                fed.append(torch.argmax(out[-1], -1))
+            lg, caches = serve(p, fed[step].to(dev), pos, pos + 1, caches)
+            out.append(lg)
+            pos = pos + 1
+        logits[devname] = torch.stack(out).cpu()
+    err, ok = close(logits["cuda"], logits["cpu"], 1e-4)
+    assert ok, f"contiguous parity: max abs err {err}"
+    assert torch.equal(logits["cuda"].argmax(-1), logits["cpu"].argmax(-1))
+    log(f"parity camformer-bert smoke contiguous (use_kernel): card vs CPU "
+        f"logits max abs err {err:.3g} (tol 1e-4), greedy picks identical "
+        f"over prefill + {steps} steps")
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the slice at full width
 
 
-def profile_run(eng, vocab, lens):
-    """A second, profiled run on the same engine (8 requests, 8 new
-    tokens each): device-busy share of the wall time and the kernels that
-    take the device time.  Kept apart from the timed run, whose numbers
-    the profiler would distort."""
+def profiled(run):
+    """Run ``run()`` under torch.profiler: wall time, device-busy seconds,
+    the device's idle share of the wall time and the kernels that take the
+    device time.  Kept apart from the timed runs, whose numbers the
+    profiler would distort."""
     from collections import Counter
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serving import Request, SamplingParams
-
-    rng = np.random.default_rng(SEED + 1)
-    reqs = [Request(prompt=[int(t) for t in rng.integers(0, vocab, n)],
-                    sampling=SamplingParams(max_new=8), rid=100 + i)
-            for i, n in enumerate(lens)]
     torch.cuda.synchronize()
-    ticks0 = eng.ticks
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in eng.stream(*reqs):
-            pass
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = Counter()
@@ -354,17 +646,34 @@ def profile_run(eng, vocab, lens):
             by_name[e.name] += e.time_range.elapsed_us()
     busy = sum(by_name.values()) / 1e6
     return dict(
-        wall_s=wall, ticks=eng.ticks - ticks0,
+        wall_s=wall,
         device_busy_s=busy if busy > 0 else "not measured",
         device_idle_share=1 - busy / wall if busy > 0 else "not measured",
         top_kernels_ms=[(name[:70], us / 1e3)
                         for name, us in by_name.most_common(6)])
 
 
+def profile_run(eng, vocab, lens):
+    """A second, profiled run on the same engine (8 requests, 8 new
+    tokens each)."""
+    from repro_torch.serving import Request, SamplingParams
+
+    rng = np.random.default_rng(SEED + 1)
+    reqs = [Request(prompt=[int(t) for t in rng.integers(0, vocab, n)],
+                    sampling=SamplingParams(max_new=8), rid=100 + i)
+            for i, n in enumerate(lens)]
+    ticks0 = eng.ticks
+
+    def run():
+        for _ in eng.stream(*reqs):
+            pass
+
+    prof = profiled(run)
+    return dict(ticks=eng.ticks - ticks0, **prof)
+
+
 def slice_phase():
     from repro_torch.configs import get_config
-    from repro_torch.kernels import bacam_decode as bdec
-    from repro_torch.kernels import paged_flash_decode as pfd
     from repro_torch.models import count_params, init_params
     from repro_torch.serving import Request, SamplingParams, ServeEngine
 
@@ -385,19 +694,19 @@ def slice_phase():
                 for i, n in enumerate(lens)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        bdec.launches = 0
-        pfd.launches = 0
-        pfd.prefill_launches = 0
-        t0 = time.perf_counter()
-        first = {}
-        n_tok = 0
-        for out in eng.stream(*reqs):
-            first.setdefault(out.rid, time.perf_counter() - t0)
-            n_tok += out.token is not None
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches[backend] = dict(bacam=bdec.launches, flash=pfd.launches,
-                                 flash_prefill=pfd.prefill_launches)
+        reset_launches()
+        with plain_calls_on_card() as plain:
+            t0 = time.perf_counter()
+            first = {}
+            n_tok = 0
+            for out in eng.stream(*reqs):
+                first.setdefault(out.rid, time.perf_counter() - t0)
+                n_tok += out.token is not None
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches[backend] = read_launches()
+        assert plain == {}, f"{backend}: plain versions ran on the card "\
+            f"{plain}"
         assert eng.tick_errors == 0, f"{backend}: {eng.last_error}"
         for r in reqs:
             assert r.finish_reason == "length", (backend, r.rid,
@@ -413,16 +722,102 @@ def slice_phase():
             ttft_p50_s=statistics.median(ttft), ttft_max_s=ttft[-1],
             readbacks=eng.readbacks, host_blocked_s=eng.blocked_s,
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-            params=n_params, launches=launches[backend])
+            params=n_params,
+            launches={k: v for k, v in launches[backend].items() if v})
         log(f"slice camformer-bert/{backend}: {json.dumps(results[backend])}")
         log(f"profile camformer-bert/{backend}: "
             f"{json.dumps(profile_run(eng, cfg.vocab, lens))}")
         del eng
         torch.cuda.empty_cache()
-    assert launches["camformer"]["bacam"] > 0, launches
-    assert launches["dense"]["flash"] > 0, launches
-    assert launches["dense"]["flash_prefill"] > 0, launches
+    assert launches["camformer"]["bacam_paged_topk_stage1"] > 0, launches
+    assert launches["dense"]["paged_flash_decode"] > 0, launches
+    assert launches["dense"]["paged_flash_decode (sq>1)"] > 0, launches
     return launches
+
+
+def contiguous_slice_phase():
+    """camformer-bert at full width, bf16, use_kernel, through the launch
+    steps: leg (a) whole-prompt prefill + 127 decode steps, leg (b)
+    prefill_chunk=128 + 31 steps.  Returns the launches of each leg."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import (cast_params, init_params, init_pools,
+                                    lm_cache_specs, make_model_def)
+
+    md = make_model_def()
+    base = get_config("camformer-bert", use_kernel=True)
+    params = cast_params(init_params(base, device="cuda", seed=SEED),
+                         torch.bfloat16)
+    n_layers, b = base.n_layers, CONTIG_B
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, base.vocab, (b, CONTIG_PROMPT))).to("cuda")
+    legs = {}
+    for leg, chunk, steps in (("a", 0, CONTIG_DECODE),
+                              ("b", CONTIG_CHUNK, CONTIG_CHUNK_DECODE)):
+        cfg = base.replace(prefill_chunk=chunk)
+        prefill, serve = make_prefill_step(md, cfg), make_serve_step(md, cfg)
+        caches = init_pools(lm_cache_specs(cfg, b, CONTIG_CACHE), "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with plain_calls_on_card() as plain:
+            t0 = time.perf_counter()
+            logits, caches = prefill(params, {"tokens": tokens}, caches)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            at_prefill = read_launches()
+            pos = torch.full((b,), CONTIG_PROMPT, dtype=torch.int32,
+                             device="cuda")
+            picks = []
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                tok = torch.argmax(logits, -1)
+                picks.append(tok)
+                logits, caches = serve(params, tok, pos, pos + 1, caches)
+                pos = pos + 1
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+        launches = read_launches()
+        n_chunks = CONTIG_PROMPT // chunk if chunk else 0
+        assert plain == {}, f"leg {leg}: plain versions ran on the card "\
+            f"{plain}"
+        assert at_prefill["bacam_mvm"] == (0 if chunk else n_layers), \
+            at_prefill
+        assert at_prefill["bacam_topk_stage1"] == n_chunks * n_layers, \
+            at_prefill
+        assert launches["bacam_topk_stage1"] == \
+            (n_chunks + steps) * n_layers, launches
+        assert launches["bacam_mvm"] == at_prefill["bacam_mvm"], launches
+        assert torch.isfinite(logits).all(), f"leg {leg}: non-finite logits"
+        picks = torch.stack(picks)
+        assert bool(((picks >= 0) & (picks < base.vocab)).all()), leg
+        legs[leg] = launches
+        if leg == "a":  # 8 more steps, profiled, after the timed ones
+            state = dict(logits=logits, caches=caches, pos=pos)
+
+            def run():
+                for _ in range(8):
+                    state["logits"], state["caches"] = serve(
+                        params, torch.argmax(state["logits"], -1),
+                        state["pos"], state["pos"] + 1, state["caches"])
+                    state["pos"] = state["pos"] + 1
+
+            state["pos"] = state["pos"] - 8  # rewrite the last 8 slots
+            log(f"profile contiguous decode (8 steps): "
+                f"{json.dumps(profiled(run))}")
+            del state
+        log(f"contiguous slice leg ({leg}) camformer-bert use_kernel "
+            f"prefill_chunk={chunk}: " + json.dumps(dict(
+                batch=b, prompt=CONTIG_PROMPT, cache_len=CONTIG_CACHE,
+                prefill_chunks=n_chunks, prefill_s=prefill_s,
+                decode_steps=steps, decode_s=decode_s,
+                decode_tokens_per_s=b * steps / decode_s,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                plain_calls_on_card=sum(plain.values()),
+                launches={k: v for k, v in launches.items() if v})))
+        del caches, logits
+        torch.cuda.empty_cache()
+    return legs
 
 
 def main():
@@ -452,23 +847,22 @@ def main():
 
     # 256 MiB, five times the L2, overwritten before each timed launch
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
-    rows = kernel_phase(flush)
+    rows = kernel_phase(flush) + contiguous_kernel_phase(flush)
     del flush
     parity_phase()
-    launches = slice_phase()
-    by_name = {"bacam_paged_topk_stage1": launches["camformer"]["bacam"],
-               "paged_flash_decode": launches["dense"]["flash"]
-               - launches["dense"]["flash_prefill"],
-               "paged_flash_decode (sq>1)":
-               launches["dense"]["flash_prefill"]}
-    for row in rows:
-        row["launches"] = by_name[row["name"]]
-        assert row["launches"] > 0, row
+    contiguous_parity_phase()
+    runs = list(slice_phase().values()) + list(
+        contiguous_slice_phase().values())
+    for row in rows:  # launches over every path run
+        row["launches"] = sum(run[row["name"]] for run in runs)
+        if row["path"] != "none":
+            assert row["launches"] > 0, row
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if row[key] is not None:
                 assert math.isfinite(row[key]), row
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "path", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in rows]}))
     print(json.dumps({"ok": True, "device": {

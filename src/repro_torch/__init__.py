@@ -3,9 +3,12 @@
 The package mirrors ``src/repro`` module by module (``configs``,
 ``core``, ``kernels``, ``models``, ``serving``, ``launch``) and imports
 nothing of it: the JAX package is the reference the port is tested
-against, not a dependency.  Plain tensor code is PyTorch; the two paged
-decode kernels of the serving path are CUDA C++ for Hopper
-(``csrc/``), built with ``nvcc`` at first use.
+against, not a dependency.  Plain tensor code is PyTorch; every TPU
+kernel of the reference has a CUDA C++ counterpart for Hopper
+(``csrc/``: paged BA-CAM decode and paged flash attention on the
+serving path, contiguous BA-CAM scoring and stage-1 top-k on the
+contiguous-cache path, contiguous flash attention), built with ``nvcc``
+at first use.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for ``device="cpu"``, where every kernel wrapper takes its plain PyTorch

@@ -1,10 +1,18 @@
-"""CAMformer attention against paged pools (Eq. 1 of the paper).
+"""CAMformer attention (Eq. 1 of the paper), contiguous and paged.
 
     CAMformer-Attn(Q, K, V) = SoftMax(Top-32(QK^T)) . V
 
 with QK^T computed on binarized operands (BA-CAM scores) and Top-32 the
 two-stage hierarchical top-k.  Selection is on the RAW binary score; the
 HAD scales enter only as a softmax temperature over the survivors.
+
+``attention`` is the operator over freshly computed (or contiguous
+cached) K/V in three modes: ``dense`` (softmax attention, the oracle),
+``binary`` (HAD-binarized scores, full softmax) and ``camformer``
+(binary scores, two-stage top-k, softmax over the survivors, sparse V
+gather).  With ``AttentionSpec.use_kernel`` the binary scores come from
+the BA-CAM CUDA kernel (kernels/bacam_mvm.py) on a CUDA tensor.
+``camformer_paged_attention`` is the serving path over paged pools.
 """
 
 from __future__ import annotations
@@ -14,10 +22,11 @@ import dataclasses
 import torch
 
 from repro_torch.core import bacam
-from repro_torch.core.binarize import had_scales, sign_pm1
+from repro_torch.core.binarize import binarize_qk, had_scales, sign_pm1
 from repro_torch.core.topk import NEG_INF, stable_topk, two_stage_topk
 
-__all__ = ["AttentionSpec", "dense_attention", "camformer_paged_attention",
+__all__ = ["AttentionSpec", "attention", "camformer_paged_attention",
+           "dense_attention", "dense_reference", "make_mask",
            "topk_softmax_weights"]
 
 # Bound on the XOR temporary of the gather branch, in int32 words: long
@@ -27,11 +36,23 @@ _GATHER_WORDS = 1 << 25
 
 @dataclasses.dataclass(frozen=True)
 class AttentionSpec:
-    """Two-stage top-k configuration of the CAMformer operator."""
+    """Configuration of the attention operator."""
 
+    mode: str = "dense"  # dense | binary | camformer
     k_top: int = 32
     group_size: int = 16  # CAM_H
     stage1_k: int = 2
+    # device-fidelity knobs of the reference's benchmarks: not ported, they
+    # raise in core/bacam.bacam_scores (None/0.0 is the exact integer path)
+    adc_bits: int | None = None
+    noise_sigma: float = 0.0
+    # straight-through training binarization: not ported, raises
+    trainable_binarize: bool = False
+    # route binary scoring through the BA-CAM CUDA kernel
+    use_kernel: bool = False
+
+    def replace(self, **kw) -> "AttentionSpec":
+        return dataclasses.replace(self, **kw)
 
 
 def topk_softmax_weights(top_v, temp, scale):
@@ -48,28 +69,159 @@ def topk_softmax_weights(top_v, temp, scale):
     return torch.where(valid, w, torch.zeros_like(w)), valid
 
 
-def dense_attention(q, k, v, mask):
-    """Masked softmax attention with GQA folding, scale 1/sqrt(D).
+def dense_attention(q, k, v, mask, scale=None):
+    """Masked softmax attention with GQA folding, scale 1/sqrt(D) unless
+    given.
 
     q: (B, H, Sq, D); k/v: (B, H_kv, Skv, D); mask broadcastable to
     (B, 1, 1, Sq, Skv).  Returns (B, H, Sq, Dv) in q's dtype.
     """
     b, h, sq, d = q.shape
-    hkv, dv = v.shape[1], v.shape[-1]
-    scale = 1.0 / (d**0.5)
-    qg = q.reshape(b, hkv, h // hkv, sq, d)
+    hkv = v.shape[1]
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    qg = _split_gqa(q, hkv)
     logits = torch.einsum("bhgqd,bhkd->bhgqk", qg.to(torch.float32),
                           k.to(torch.float32)) * scale
+    return _softmax_av(logits, mask, v, q)
+
+
+def _softmax_av(logits, mask, v, q):
+    """Masked softmax over (B, H_kv, G, Sq, Skv) logits, then . V;
+    returns (B, H, Sq, Dv) in q's dtype."""
+    b, h, sq, _ = q.shape
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", w.to(v.dtype), v)
-    return out.reshape(b, h, sq, dv).to(q.dtype)
+    return out.reshape(b, h, sq, v.shape[-1]).to(q.dtype)
+
+
+def make_mask(sq: int, skv: int, *, causal: bool = True, q_positions=None,
+              kv_positions=None, kv_valid=None, window: int | None = None,
+              device=None):
+    """Boolean validity mask broadcastable to (B, 1, Sq, Skv).
+
+    ``q_positions`` (B?, Sq) / ``kv_positions`` (B?, Skv) default to
+    arange; ``kv_valid`` (B, Skv) masks invalid cache slots.
+    """
+    if q_positions is None:
+        q_positions = torch.arange(sq, dtype=torch.int32,
+                                   device=device)[None, :]
+    if kv_positions is None:
+        kv_positions = torch.arange(skv, dtype=torch.int32,
+                                    device=q_positions.device)[None, :]
+    qp = q_positions[:, :, None]  # (B?, Sq, 1)
+    kp = kv_positions[:, None, :]  # (B?, 1, Skv)
+    mask = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                      dtype=torch.bool, device=qp.device)
+    if causal:
+        mask = mask & (kp <= qp)
+    if window is not None:
+        mask = mask & (kp > qp - window)
+    if kv_valid is not None:
+        mask = mask & kv_valid[:, None, :]
+    return mask[:, None]  # (B?, 1, Sq, Skv): the head axis broadcasts
+
+
+def _split_gqa(q: torch.Tensor, h_kv: int) -> torch.Tensor:
+    """(B, H, Sq, D) -> (B, H_kv, G, Sq, D), a view (K/V never repeat)."""
+    b, h, sq, d = q.shape
+    if h % h_kv != 0:
+        raise ValueError(f"H={h} not divisible by H_kv={h_kv}")
+    return q.reshape(b, h_kv, h // h_kv, sq, d)
+
+
+def _binary_scores(qg, k, spec: AttentionSpec):
+    """Binary scores (B, H_kv, G, Sq, Skv) float32 and the softmax
+    temperature (B, H_kv, G, Sq, 1) in q's dtype."""
+    qb, kb, q_scale, k_scale = binarize_qk(
+        qg, k, trainable=spec.trainable_binarize, with_scales=True)
+    if (spec.use_kernel and spec.adc_bits is None
+            and spec.noise_sigma == 0.0):
+        from repro_torch.kernels import ops as kops  # local: no cycle
+
+        b, hkv, g, sq, d = qb.shape
+        skv = kb.shape[-2]
+        s3 = kops.bacam_scores(qb.reshape(b * hkv, g * sq, d),
+                               kb.reshape(b * hkv, skv, d))
+        scores = s3.reshape(b, hkv, g, sq, skv)
+    else:
+        scores = bacam.bacam_scores(qb, kb[:, :, None],
+                                    adc_bits=spec.adc_bits,
+                                    noise_sigma=spec.noise_sigma)
+    # HAD temperature: the per-row q scale and the per-head k scale, so
+    # selection on the raw scores orders keys as the hardware does
+    k_scale_head = k_scale.mean(dim=-2, keepdim=True)  # (B, H_kv, 1, 1)
+    temp = q_scale * k_scale_head[:, :, None]  # (B, H_kv, G, Sq, 1)
+    return scores.to(torch.float32), temp
+
+
+def attention(q, k, v, spec: AttentionSpec = AttentionSpec(), *,
+              causal: bool = True, q_positions=None, kv_positions=None,
+              kv_valid=None, window: int | None = None,
+              scale: float | None = None):
+    """Multi-head (GQA) attention in the spec's mode.
+
+    q: (B, H, Sq, D); k: (B, H_kv, Skv, D); v: (B, H_kv, Skv, Dv).
+    Masking as ``make_mask``; scale defaults to 1/sqrt(D).  Returns
+    (B, H, Sq, Dv) in q's dtype.
+    """
+    b, h, sq, d = q.shape
+    h_kv, skv = v.shape[1], v.shape[2]
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    mask = make_mask(sq, skv, causal=causal, q_positions=q_positions,
+                     kv_positions=kv_positions, kv_valid=kv_valid,
+                     window=window, device=q.device)
+    mask5 = mask[:, :, None]  # (B?, 1, 1, Sq, Skv): over (H_kv, G)
+
+    if spec.mode == "dense":
+        return dense_attention(q, k, v, mask5, scale)
+    if spec.mode not in ("binary", "camformer"):
+        raise ValueError(f"unknown attention mode {spec.mode!r}")
+
+    qg = _split_gqa(q, h_kv)
+    scores, temp = _binary_scores(qg, k, spec)
+    if spec.mode == "binary":
+        # XNOR-Net/HAD dequant: q.k ~ alpha_q alpha_k (qb.kb)
+        return _softmax_av(scores * temp * scale, mask5, v, q)
+
+    # camformer: select on the RAW binary scores (hardware ordering)
+    raw = torch.where(mask5, scores, torch.full_like(scores, NEG_INF))
+    top_v, top_i = two_stage_topk(raw, k=spec.k_top,
+                                  group_size=spec.group_size,
+                                  stage1_k=spec.stage1_k)  # (B,Hkv,G,Sq,K)
+    # the temperature applies to the k survivors (softmax LUT stage)
+    valid = top_v > NEG_INF / 2
+    w = torch.softmax(torch.where(valid, top_v * temp * scale,
+                                  torch.full_like(top_v, NEG_INF)), dim=-1)
+    # sparse contextualization: gather only the k selected V rows
+    v_sel = _gather_rows(v, top_i)
+    out = torch.einsum("bhgqk,bhgqkd->bhgqd", w.to(v.dtype), v_sel)
+    return out.reshape(b, h, sq, v.shape[-1]).to(q.dtype)
+
+
+def _gather_rows(v, idx):
+    """v: (B, H_kv, S, Dv); idx: (B, H_kv, G, Sq, K) key indices ->
+    (B, H_kv, G, Sq, K, Dv), the selected rows of each (b, kv head)."""
+    b, hkv = v.shape[:2]
+    bi = torch.arange(b, device=v.device)[:, None, None, None, None]
+    hi = torch.arange(hkv, device=v.device)[None, :, None, None, None]
+    return v[bi, hi, idx.long()]
+
+
+def dense_reference(q, k, v, *, causal: bool = True,
+                    scale: float | None = None, window: int | None = None):
+    """Naive full-precision softmax attention (the tests' oracle)."""
+    return attention(q, k, v, AttentionSpec(mode="dense"), causal=causal,
+                     scale=scale, window=window)
 
 
 def _gather_topk(qp, kp, kv_len, q_positions, spec, d, g, window):
-    """The Sq > 1 branch: score packed rows against the gathered packed
-    keys and run the two-stage top-k, a slice of rows at a time so the
-    (rows, S_log, W) XOR temporary stays bounded."""
+    """Plain association stage: score packed rows (B, H_kv, G * Sq, W)
+    against logical-order packed keys (B, H_kv, S, W) (gathered pages or
+    the contiguous cache), mask, and run the two-stage top-k, a slice of
+    rows at a time so the (rows, S, W) XOR temporary stays bounded."""
     b, hkv, rows, w = qp.shape
     s_log = kp.shape[2]
     sq = rows // g

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["pack_bits", "unpack_bits", "popcount32",
-           "hamming_scores_packed"]
+           "hamming_scores_packed", "bacam_scores"]
 
 _MASK32 = 0xFFFFFFFF
 
@@ -73,3 +73,21 @@ def hamming_scores_packed(q_packed: torch.Tensor, k_packed: torch.Tensor,
     x = torch.bitwise_xor(q_packed[..., :, None, :], k_packed[..., None, :, :])
     mismatches = popcount32(x).sum(dim=-1, dtype=torch.int32)
     return d - 2 * mismatches
+
+
+def bacam_scores(qb: torch.Tensor, kb: torch.Tensor, *,
+                 adc_bits: int | None = None, noise_sigma: float = 0.0,
+                 exact: bool = True) -> torch.Tensor:
+    """Binary QK^T of ±1 tensors (..., Sq, d) / (..., Sk, d) on the exact
+    integer path: (..., Sq, Sk) int32 in [-d, d] (leading dims broadcast).
+
+    The device-fidelity knobs of the reference (per-tile ADC readout
+    ``adc_bits``, matchline noise ``noise_sigma``, ``exact=False``, with
+    their ``cam_w`` tile width and noise ``rng``) serve only its fidelity
+    benchmarks and are not ported yet: they raise.
+    """
+    if not exact or adc_bits is not None or noise_sigma != 0.0:
+        raise NotImplementedError(
+            "the BA-CAM device model (adc_bits / noise_sigma / exact=False) "
+            "is not ported yet; only the exact integer path is")
+    return hamming_scores_packed(pack_bits(qb), pack_bits(kb), qb.shape[-1])

@@ -1,9 +1,15 @@
-"""Pluggable attention backends over the paged KV pools.
+"""Pluggable attention backends: contiguous caches and paged pools.
 
-An ``AttentionBackend`` defines how one attention layer realizes its
-paged pool layout (``page_spec``) and the paged prefill/decode step
-against it (``paged_decode``, the single serving path).  This port
-carries the two backends of the serving main path:
+An ``AttentionBackend`` defines how one attention layer realizes
+
+  * its contiguous KV cache layout (``cache_spec``), the splice into it
+    (``write_cache``) and the decode step against it (``decode``),
+  * attention over freshly computed K/V (``prefill``: whole-prompt
+    prefill),
+  * its paged pool layout (``page_spec``) and the paged prefill/decode
+    step against it (``paged_decode``, the serving engine's path).
+
+This port carries two backends:
 
   * ``dense``     — softmax attention over bf16/f32 K/V pages, the oracle;
   * ``camformer`` — the paper: bit-packed binary key pages, two-stage
@@ -16,10 +22,16 @@ camformer) and ``"gather"`` gathers the pages into logical order and
 attends in plain PyTorch.  Dense Sq > 1 chunks follow
 ``prefill_paged_impl``; camformer chunks always gather.
 
-Pools are updated IN PLACE (the reference's functional ``.at[].set``
-would copy a whole pool per layer per tick): ``paged_decode`` writes the
-new rows into the tensors of the ``cache`` dict it is given and returns
-that dict.
+Contiguous camformer decode rows (and prefill chunks) run the BA-CAM
+association kernel (kernels/bacam_topk.py) when ``cfg.use_kernel`` is
+set, and whole-prompt prefill the BA-CAM matrix kernel through
+``core/attention.attention``; without it they score in plain PyTorch.
+
+Caches and pools are updated IN PLACE (the reference's functional
+``dynamic_update_slice`` / ``.at[].set`` would copy a whole cache per
+layer per step): ``write_cache`` / ``decode`` / ``paged_decode`` write
+the new rows into the tensors of the ``cache`` dict they are given and
+return that dict.
 
 Row contract (one call per layer per engine tick, for every batch row):
 rows with ``kv_len == 0`` are INERT — their writes resolve to the trash
@@ -34,10 +46,13 @@ from typing import Dict
 import torch
 
 from repro_torch.core import bacam
-from repro_torch.core.attention import (AttentionSpec,
+from repro_torch.core.attention import (AttentionSpec, _gather_rows,
+                                        _gather_topk, attention,
                                         camformer_paged_attention,
-                                        dense_attention)
+                                        dense_attention,
+                                        topk_softmax_weights)
 from repro_torch.core.binarize import had_scales, sign_pm1
+from repro_torch.core.topk import stable_topk
 
 __all__ = ["AttentionBackend", "DenseBackend", "CamformerBackend",
            "register_backend", "get_backend", "list_backends",
@@ -70,6 +85,36 @@ def list_backends() -> list:
 def backends_for(cfg) -> tuple:
     """Resolve the per-layer backend objects for a model config."""
     return tuple(get_backend(cfg.backend_for(i)) for i in range(cfg.n_layers))
+
+
+def _seq_insert(buf, upd, index):
+    """Write ``upd`` (B, H, S, ...) into ``buf`` (B, H, L, ...) along the
+    sequence axis, in place, and return ``buf``.
+
+    index: an int or 0-d tensor (the same start for every row: prefill)
+    or a (B,) tensor (one start per row: decode).  As the reference's
+    ``dynamic_update_slice`` does, a start that would run past the end is
+    clamped to L - S (and a negative one to 0); the clamp is explicit
+    here, since PyTorch indexing would raise instead.
+    """
+    length, s = buf.shape[2], upd.shape[2]
+    upd = upd.to(buf.dtype)
+    if not torch.is_tensor(index) or index.ndim == 0:
+        i = min(max(int(index), 0), length - s)
+        buf[:, :, i:i + s] = upd
+        return buf
+    start = torch.clamp(index.to(torch.int64), 0, length - s)
+    pos = start[:, None] + torch.arange(s, device=buf.device)  # (B, S)
+    rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
+    buf[rows, :, pos] = upd.transpose(1, 2)
+    return buf
+
+
+def _no_ring_cache(kv_positions):
+    if kv_positions is not None:
+        raise NotImplementedError(
+            "ring caches with rotated kv_positions (the windowed model "
+            "families) are not ported yet")
 
 
 def _running_k_scale(k_scale, k, pos, kv_len, base):
@@ -118,13 +163,48 @@ def _write_rows(pool, phys, row, x):
 
 
 class AttentionBackend:
-    """One physical realization of paged attention."""
+    """One physical realization of the attention operation."""
 
     name: str = "?"
+    mode: str = "?"  # core/attention AttentionSpec operator mode
 
     def spec(self, cfg) -> AttentionSpec:
-        return AttentionSpec(k_top=cfg.k_top, group_size=cfg.group_size,
-                             stage1_k=cfg.stage1_k)
+        return AttentionSpec(mode=self.mode, k_top=cfg.k_top,
+                             group_size=cfg.group_size,
+                             stage1_k=cfg.stage1_k,
+                             use_kernel=cfg.use_kernel)
+
+    def cache_spec(self, cfg, batch: int, cache_len: int, dtype) -> dict:
+        """{leaf: (shape, dtype)} of one layer's contiguous cache."""
+        raise NotImplementedError
+
+    def prefill(self, q, k, v, cfg, *, causal=True, positions=None,
+                window=None):
+        """Attention over freshly computed K/V (whole-prompt prefill).
+        Returns (B, H, Sq, Dv)."""
+        return attention(q, k, v, self.spec(cfg), causal=causal,
+                         q_positions=positions, window=window)
+
+    def decode(self, q, cache, k, v, cache_index, kv_len, positions, cfg, *,
+               kv_positions=None, window=None):
+        """Write k/v at ``cache_index`` then attend against the contiguous
+        cache.  Returns (out, cache)."""
+        raise NotImplementedError
+
+    def write_cache(self, cache, k, v, index, cfg):
+        """Insert new K/V at ``index`` along the cache sequence axis.  An
+        update longer than the cache keeps only its trailing cache-length
+        slice, stored at 0."""
+        if cache is None:
+            return None
+        cache_len = cache["v"].shape[2]
+        if k.shape[2] > cache_len:
+            k, v = k[:, :, -cache_len:], v[:, :, -cache_len:]
+            index = 0
+        return self._write(cache, k, v, index, cfg)
+
+    def _write(self, cache, k, v, index, cfg):
+        raise NotImplementedError
 
     def page_spec(self, cfg, n_pages: int, page_size: int, max_batch: int,
                   dtype) -> dict:
@@ -142,10 +222,33 @@ class DenseBackend(AttentionBackend):
     """Standard softmax attention over full-precision K/V pages."""
 
     name = "dense"
+    mode = "dense"
+
+    def cache_spec(self, cfg, batch, cache_len, dtype):
+        shape = (batch, cfg.n_kv_heads, cache_len, cfg.head_dim)
+        return {"k": (shape, dtype), "v": (shape, dtype)}
 
     def page_spec(self, cfg, n_pages, page_size, max_batch, dtype):
         shape = (n_pages, cfg.n_kv_heads, page_size, cfg.head_dim)
         return {"k_pages": (shape, dtype), "v_pages": (shape, dtype)}
+
+    def _write(self, cache, k, v, index, cfg):
+        _seq_insert(cache["k"], k, index)
+        _seq_insert(cache["v"], v, index)
+        return cache
+
+    def decode(self, q, cache, k, v, cache_index, kv_len, positions, cfg, *,
+               kv_positions=None, window=None):
+        _no_ring_cache(kv_positions)
+        cache = self.write_cache(cache, k, v, cache_index, cfg)
+        ck, cv = cache["k"], cache["v"]
+        kv_pos = torch.arange(ck.shape[2], dtype=torch.int32,
+                              device=q.device)[None]
+        kv_valid = kv_pos < kv_len.reshape(-1, 1)
+        out = attention(q, ck, cv, self.spec(cfg), causal=True,
+                        q_positions=positions, kv_positions=kv_pos,
+                        kv_valid=kv_valid, window=window or cfg.window)
+        return out, cache
 
     def _paged_write(self, cache, k, v, positions, page_table, kv_len=None):
         page = cache["k_pages"].shape[2]
@@ -189,6 +292,89 @@ class CamformerBackend(AttentionBackend):
     top-k V gather."""
 
     name = "camformer"
+    mode = "camformer"
+
+    def cache_spec(self, cfg, batch, cache_len, dtype):
+        hkv, d = cfg.n_kv_heads, cfg.head_dim
+        return {
+            "k_packed": ((batch, hkv, cache_len, d // 32), torch.int32),
+            "v": ((batch, hkv, cache_len, d), dtype),
+            "k_scale": ((batch, hkv), torch.float32),
+        }
+
+    def _write(self, cache, k, v, index, cfg):
+        _seq_insert(cache["k_packed"], bacam.pack_bits(sign_pm1(k)), index)
+        _seq_insert(cache["v"], v, index)
+        # running per-head key scale (softmax temperature bookkeeping),
+        # over every written position, as the reference keeps it
+        step = float(k.shape[2])
+        new_mean = k.to(torch.float32).abs().mean(dim=(2, 3))  # (B, H_kv)
+        idx_f = torch.as_tensor(index, dtype=torch.float32,
+                                device=k.device).reshape(-1, 1)
+        cache["k_scale"] = ((cache["k_scale"] * idx_f + new_mean * step)
+                            / (idx_f + step))
+        return cache
+
+    def decode(self, q, cache, k, v, cache_index, kv_len, positions, cfg, *,
+               kv_positions=None, window=None):
+        _no_ring_cache(kv_positions)
+        cache = self.write_cache(cache, k, v, cache_index, cfg)
+        if cfg.distributed_topk and q.shape[0] == 1:
+            return self._distributed_attend(q, cache, kv_len, positions,
+                                            cfg), cache
+        return self._cache_attend(q, cache, kv_len, positions, cfg), cache
+
+    def _cache_attend(self, q, cache, kv_len, positions, cfg):
+        """Decode / chunk attention against the packed binary cache.
+
+        q: (B, H, Sq, D); kv_len: (B,); positions: (B, Sq).  With
+        ``cfg.use_kernel`` the association stage (scores + stage-1 top-k)
+        runs in kernels/bacam_topk.py, with the query rows of (b, kv head)
+        folded as r = g * Sq + s; otherwise in plain PyTorch.  Stage 2,
+        the softmax over the survivors and the sparse V gather follow.
+        """
+        spec = self.spec(cfg)
+        b, h, sq, d = q.shape
+        hkv = cfg.n_kv_heads
+        g = h // hkv
+        skv = cache["v"].shape[2]
+        w = d // 32
+        qf = q.to(torch.float32)
+        q_scale = had_scales(qf, keepdim=False)  # (B, H, Sq)
+        qp = bacam.pack_bits(sign_pm1(qf)).reshape(b, hkv, g * sq, w)
+        kv_len = kv_len.reshape(b).to(torch.int32)
+        if spec.use_kernel:
+            from repro_torch.kernels import ops as kops  # local: no cycle
+
+            pos = positions.to(torch.int32)[:, None, None, :].expand(
+                b, hkv, g, sq).reshape(b * hkv, g * sq)
+            kvl = kv_len[:, None].expand(b, hkv).reshape(b * hkv)
+            cand_v, cand_i = kops.bacam_attention_scores_topk_packed(
+                qp.reshape(b * hkv, g * sq, w),
+                cache["k_packed"].reshape(b * hkv, skv, w), pos, kvl, d=d,
+                group=spec.group_size, stage1_k=spec.stage1_k, causal=True,
+                window=cfg.window)
+            top_v, sel = stable_topk(cand_v,
+                                     min(spec.k_top, cand_v.shape[-1]))
+            top_i = torch.gather(cand_i, -1, sel)
+        else:
+            top_v, top_i = _gather_topk(qp, cache["k_packed"], kv_len,
+                                        positions, spec, d, g, cfg.window)
+        top_v = top_v.reshape(b, hkv, g, sq, -1)
+        top_i = top_i.reshape(b, hkv, g, sq, -1)
+
+        temp = (q_scale.reshape(b, hkv, g, sq)[..., None]
+                * cache["k_scale"][:, :, None, None, None])
+        wts, _ = topk_softmax_weights(top_v, temp, 1.0 / (d**0.5))
+        v_sel = _gather_rows(cache["v"], top_i)  # (B, H_kv, G, Sq, K, Dv)
+        out = torch.einsum("bhgqk,bhgqkd->bhgqd", wts.to(cache["v"].dtype),
+                           v_sel)
+        return out.reshape(b, h, sq, d).to(q.dtype)
+
+    def _distributed_attend(self, q, cache, kv_len, positions, cfg):
+        raise NotImplementedError(
+            "distributed CAM search (cfg.distributed_topk over a "
+            "sequence-sharded cache) is not ported yet")
 
     def page_spec(self, cfg, n_pages, page_size, max_batch, dtype):
         hkv, d = cfg.n_kv_heads, cfg.head_dim

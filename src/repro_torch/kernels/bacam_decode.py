@@ -17,8 +17,6 @@ launches.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import build
@@ -27,33 +25,6 @@ from repro_torch.kernels.ref import bacam_paged_topk_ref
 __all__ = ["bacam_paged_topk_stage1", "bacam_paged_topk_ref", "launches"]
 
 launches = 0  # kernel launches (plain-version calls are not counted)
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-
-
-_fn = None
-
-
-def _entry():
-    global _fn
-    if _fn is None:
-        fn = build.load("bacam_decode").bacam_paged_topk_stage1
-        fn.argtypes = [_P] * 7 + [_I] * 12 + [_P]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
-def _check(name, t, device, dtype, shape):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def bacam_paged_topk_stage1(q_packed, kp_pages, page_table, kv_len, q_pos, *,
@@ -77,11 +48,12 @@ def bacam_paged_topk_stage1(q_packed, kp_pages, page_table, kv_len, q_pos, *,
     np_ = page_table.shape[1]
     dev = q_packed.device
     i32 = torch.int32
-    _check("q_packed", q_packed, dev, i32, (b, hkv, rows, words))
-    _check("kp_pages", kp_pages, dev, i32, (n_pages, hkv, page, words))
-    _check("page_table", page_table, dev, i32, (b, np_))
-    _check("kv_len", kv_len, dev, i32, (b,))
-    _check("q_pos", q_pos, dev, i32, (b,))
+    build.check("q_packed", q_packed, dev, i32, (b, hkv, rows, words))
+    build.check("kp_pages", kp_pages, dev, i32,
+                (n_pages, hkv, page, words))
+    build.check("page_table", page_table, dev, i32, (b, np_))
+    build.check("kv_len", kv_len, dev, i32, (b,))
+    build.check("q_pos", q_pos, dev, i32, (b,))
     if words * 32 != d or words > 8:
         raise ValueError(f"d={d} must be 32 * W with W <= 8, got W={words}")
     if group < 1 or group > 32 or group & (group - 1):
@@ -96,7 +68,8 @@ def bacam_paged_topk_stage1(q_packed, kp_pages, page_table, kv_len, q_pos, *,
     if vals.numel() == 0:
         return vals, idx
     with torch.cuda.device(dev):
-        err = _entry()(
+        err = build.entry("bacam_decode", "bacam_paged_topk_stage1", 7,
+                          12)(
             q_packed.data_ptr(), kp_pages.data_ptr(), page_table.data_ptr(),
             kv_len.data_ptr(), q_pos.data_ptr(), vals.data_ptr(),
             idx.data_ptr(), b, hkv, rows, words, n_pages, page, np_, d,

@@ -1,0 +1,57 @@
+"""BA-CAM binary matrix product (the full score matrix), CUDA on the card.
+
+Replaces the TPU kernel ``kernels/bacam_mvm.py::bacam_mvm`` of the
+reference package.  The CUDA source is ``csrc/bacam_mvm.cu``; its header
+states the design.
+
+Bound on the card: the int32 output dominates.  At the contiguous
+prefill of camformer-bert (B * H_kv = 128, R = Skv = 896, d = 64) the
+kernel writes 411 MB of scores from 1.8 MB of packed operands, about
+123 us at 3.35 TB/s; the kernel keeps every store coalesced.
+
+A tensor on the CPU takes the plain version (``ref.bacam_scores_ref``);
+a CUDA tensor launches the kernel or raises.  ``launches`` counts kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import bacam_scores_ref
+
+__all__ = ["bacam_mvm", "bacam_scores_ref", "launches"]
+
+launches = 0  # kernel launches (plain-version calls are not counted)
+
+
+def bacam_mvm(q_packed: torch.Tensor, k_packed: torch.Tensor, *,
+              d: int) -> torch.Tensor:
+    """Binary scores (B, R, Skv) int32 from packed (B, R, W) and
+    (B, Skv, W) int32 operands: ``d - 2 * popcount(q ^ k)``, any R, Skv
+    and W = d / 32 <= 8 (no padding)."""
+    if not q_packed.is_cuda:
+        return bacam_scores_ref(q_packed, k_packed, d)
+    global launches
+    b, r, words = q_packed.shape
+    skv = k_packed.shape[1]
+    dev = q_packed.device
+    build.check("q_packed", q_packed, dev, torch.int32, (b, r, words))
+    build.check("k_packed", k_packed, dev, torch.int32, (b, skv, words))
+    if words * 32 != d or not 1 <= words <= 8:
+        raise ValueError(f"d={d} must be 32 * W with 1 <= W <= 8, got "
+                         f"W={words}")
+    if b > 65535:
+        raise ValueError(f"B={b} exceeds the grid's 65535 batches")
+    out = torch.empty((b, r, skv), dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = build.entry("bacam_mvm", "bacam_mvm", 3, 5)(
+            q_packed.data_ptr(), k_packed.data_ptr(), out.data_ptr(), b, r,
+            skv, words, d, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"bacam_mvm launch failed: CUDA error {err}")
+    launches += 1
+    return out

@@ -6,7 +6,8 @@ and loaded with ``ctypes``; the hash covers the source and the flags, so
 an edited source never loads a stale library.  Nothing is built when a
 module is imported: the kernel wrappers call :func:`load` at their first
 launch, and :func:`build` compiles several sources at once, one ``nvcc``
-process each.
+process each.  :func:`entry` binds one C function of a library, and
+:func:`check` is the argument check every wrapper runs before a launch.
 """
 
 from __future__ import annotations
@@ -21,16 +22,20 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build", "load",
-           "build_log"]
+           "build_log", "entry", "check"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("bacam_decode", "paged_flash_decode")
+SOURCES = ("bacam_decode", "paged_flash_decode", "bacam_topk", "bacam_mvm",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[str, object] = {}
 _LOGS: Dict[str, str] = {}
 _LOCK = threading.Lock()
 
@@ -94,3 +99,32 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
         return _LIBS[name]
+
+
+def entry(name: str, symbol: str, n_ptr: int, n_int: int,
+          n_float: int = 0):
+    """C function ``symbol`` of ``csrc/<name>.cu`` taking ``n_ptr``
+    pointers, then ``n_int`` ints, ``n_float`` floats and the stream; it
+    returns the launch's ``cudaGetLastError()`` as an int."""
+    key = f"{name}.{symbol}"
+    if key not in _FNS:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_float] * n_float + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FNS[key] = fn
+    return _FNS[key]
+
+
+def check(name: str, t: torch.Tensor, device, dtype, shape):
+    """Raise unless ``t`` lies on ``device`` with ``dtype`` and ``shape``
+    and is contiguous (what a kernel launch assumes)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

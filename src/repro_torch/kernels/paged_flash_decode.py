@@ -21,12 +21,9 @@ with ``sq > 1``.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.bacam_decode import _check
 from repro_torch.kernels.ref import paged_flash_decode_ref
 
 __all__ = ["paged_flash_decode", "paged_flash_decode_ref", "launches",
@@ -34,21 +31,6 @@ __all__ = ["paged_flash_decode", "paged_flash_decode_ref", "launches",
 
 launches = 0  # kernel launches (plain-version calls are not counted)
 prefill_launches = 0  # the sq > 1 subset of ``launches``
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-
-
-_fn = None
-
-
-def _entry():
-    global _fn
-    if _fn is None:
-        fn = build.load("paged_flash_decode").paged_flash_decode
-        fn.argtypes = [_P] * 7 + [_I] * 13 + [_P]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
 
 
 def paged_flash_decode(q_rows, k_pages, v_pages, page_table, kv_len, q_pos, *,
@@ -73,12 +55,14 @@ def paged_flash_decode(q_rows, k_pages, v_pages, page_table, kv_len, q_pos, *,
     dev = q_rows.device
     if k_pages.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"k_pages dtype {k_pages.dtype}: bf16 or f32 only")
-    _check("q_rows", q_rows, dev, torch.float32, (b, hkv, rows, d))
-    _check("k_pages", k_pages, dev, k_pages.dtype, (n_pages, hkv, page, d))
-    _check("v_pages", v_pages, dev, k_pages.dtype, (n_pages, hkv, page, dv))
-    _check("page_table", page_table, dev, torch.int32, (b, np_))
-    _check("kv_len", kv_len, dev, torch.int32, (b,))
-    _check("q_pos", q_pos, dev, torch.int32, (b,))
+    build.check("q_rows", q_rows, dev, torch.float32, (b, hkv, rows, d))
+    build.check("k_pages", k_pages, dev, k_pages.dtype,
+                (n_pages, hkv, page, d))
+    build.check("v_pages", v_pages, dev, k_pages.dtype,
+                (n_pages, hkv, page, dv))
+    build.check("page_table", page_table, dev, torch.int32, (b, np_))
+    build.check("kv_len", kv_len, dev, torch.int32, (b,))
+    build.check("q_pos", q_pos, dev, torch.int32, (b,))
     if rows % sq:
         raise ValueError(f"rows={rows} must be a multiple of sq={sq}")
     if dv > 256 or d > 256:
@@ -87,7 +71,8 @@ def paged_flash_decode(q_rows, k_pages, v_pages, page_table, kv_len, q_pos, *,
     if out.numel() == 0:
         return out
     with torch.cuda.device(dev):
-        err = _entry()(
+        err = build.entry("paged_flash_decode", "paged_flash_decode", 7,
+                          13)(
             q_rows.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), kv_len.data_ptr(), q_pos.data_ptr(),
             out.data_ptr(), b, hkv, rows, d, dv, n_pages, page, np_, sq,

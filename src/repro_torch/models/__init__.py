@@ -1,8 +1,12 @@
-"""The decoder-only LM of the serving path, in PyTorch."""
+"""The decoder-only LM (paged serving and contiguous-cache paths), in
+PyTorch."""
 
 from repro_torch.models.convert import from_jax_params  # noqa: F401
 from repro_torch.models.module import (cast_params,  # noqa: F401
                                        count_params, init_params)
-from repro_torch.models.transformer import (dtype_of,  # noqa: F401
-                                            init_pools, lm_decode_paged,
-                                            lm_page_specs, lm_prefill_paged)
+from repro_torch.models.transformer import (ModelDef,  # noqa: F401
+                                            dtype_of, init_pools,
+                                            lm_cache_specs, lm_decode,
+                                            lm_decode_paged, lm_page_specs,
+                                            lm_prefill, lm_prefill_paged,
+                                            make_model_def)

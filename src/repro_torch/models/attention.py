@@ -1,18 +1,26 @@
 """Model-level attention block: projections, RoPE and dispatch to the
-layer's paged ``AttentionBackend`` (core/backend.py)."""
+layer's ``AttentionBackend`` (core/backend.py), over a paged pool or a
+contiguous cache."""
 
 from __future__ import annotations
 
 from repro_torch.core.backend import AttentionBackend, get_backend
 from repro_torch.models.layers import rope
 
-__all__ = ["attention_block"]
+__all__ = ["attn_cache_spec", "attention_block"]
 
 
 def _resolve_backend(cfg, backend=None) -> AttentionBackend:
     if isinstance(backend, AttentionBackend):
         return backend
     return get_backend(backend or cfg.backend)
+
+
+def attn_cache_spec(cfg, batch: int, cache_len: int, dtype, backend=None):
+    """{leaf: (shape, dtype)} of one layer's contiguous self-attention
+    cache (delegates to the layer's backend)."""
+    return _resolve_backend(cfg, backend).cache_spec(cfg, batch, cache_len,
+                                                     dtype)
 
 
 def _project(p, x, cfg):
@@ -31,21 +39,53 @@ def _project(p, x, cfg):
     return q, k, v
 
 
-def attention_block(p, x, cfg, *, positions, cache, kv_len, page_table,
-                    scale_base=None, backend=None):
-    """Paged self-attention sub-block (prefill chunks and decode rows).
+def attention_block(p, x, cfg, *, positions, cache=None, cache_index=None,
+                    kv_len=None, page_table=None, scale_base=None,
+                    cross_kv=None, backend=None):
+    """Self-attention sub-block.  Returns (out (B, S, d_model), cache).
 
-    x: (B, S, d_model); positions: (B, S); cache: this layer's pool dict
-    (updated in place); kv_len: (B,); page_table: (B, NP).  Returns
-    (out (B, S, d_model), cache).
+    x: (B, S, d_model); positions: (B, S).  Modes, as the reference's:
+
+      paged serving:  ``cache`` is this layer's pool dict and
+                      ``page_table`` (B, NP) is set (with ``kv_len``):
+                      prefill chunks and decode rows splice into pages
+                      and attend through the page table;
+      prefill:        contiguous ``cache``, ``kv_len`` None: attention
+                      over the fresh K/V, written at ``cache_index``
+                      (default 0);
+      decode:         contiguous ``cache`` and ``kv_len`` (B,): write at
+                      ``cache_index`` (an int or (B,)), then attend over
+                      the cache's valid slots.
+
+    Attention is causal, windowed by ``cfg.window``; caches are updated
+    in place.  Cross-attention (``cross_kv``, the encoder-decoder family)
+    is not ported yet.
     """
+    if cross_kv is not None:
+        raise NotImplementedError(
+            "cross-attention (the encoder-decoder family) is not ported yet")
     bk = _resolve_backend(cfg, backend)
     b, s, _ = x.shape
     q, k, v = _project(p, x, cfg)
     if cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    out, cache = bk.paged_decode(q, cache, k, v, positions, page_table,
-                                 kv_len, cfg, base=scale_base)
+    if page_table is not None and cache is not None:
+        if kv_len is None:
+            raise ValueError("paged cache needs page_table and kv_len")
+        out, cache = bk.paged_decode(q, cache, k, v, positions, page_table,
+                                     kv_len, cfg, base=scale_base)
+    elif cache is not None and "v" not in cache:
+        # a paged pool reached the contiguous path: fail loudly
+        raise ValueError("paged cache needs page_table and kv_len")
+    else:
+        index = 0 if cache_index is None else cache_index
+        if cache is not None and kv_len is not None:
+            out, cache = bk.decode(q, cache, k, v, index, kv_len, positions,
+                                   cfg)
+        else:
+            cache = bk.write_cache(cache, k, v, index, cfg)
+            out = bk.prefill(q, k, v, cfg, positions=positions,
+                             window=cfg.window)
     out = out.transpose(1, 2).reshape(b, s, cfg.q_dim)
     return out @ p["wo"].to(x.dtype), cache

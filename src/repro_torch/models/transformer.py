@@ -1,11 +1,16 @@
-"""Decoder-only transformer LM over paged KV pools (the serving forward).
+"""Decoder-only transformer LM: the serving forward over paged KV pools
+and the contiguous-cache prefill/decode.
 
 The layer stack is a Python loop over the per-layer parameter dicts and
-per-layer pool dicts (uniform and mixed ``layer_backends`` stacks alike);
-each layer binds its own backend (``cfg.backend_for(layer)``).
+per-layer pool or cache dicts (uniform and mixed ``layer_backends``
+stacks alike); each layer binds its own backend
+(``cfg.backend_for(layer)``).  ``make_model_def`` bundles the entry
+points as the reference's ``ModelDef`` does.
 """
 
 from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -13,8 +18,9 @@ from repro_torch.core.backend import backends_for
 from repro_torch.models import layers as L
 from repro_torch.models.attention import attention_block
 
-__all__ = ["dtype_of", "lm_page_specs", "init_pools", "lm_hidden",
-           "lm_prefill_paged", "lm_decode_paged"]
+__all__ = ["ModelDef", "make_model_def", "dtype_of", "lm_cache_specs",
+           "lm_page_specs", "init_pools", "lm_hidden", "lm_prefill",
+           "lm_decode", "lm_prefill_paged", "lm_decode_paged"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -30,32 +36,63 @@ def lm_page_specs(cfg, n_pages: int, page_size: int, max_batch: int):
             for bk in backends_for(cfg)]
 
 
+def lm_cache_specs(cfg, batch: int, cache_len: int):
+    """Per-layer contiguous cache specs, a list of {leaf: (shape, dtype)}
+    (the reference stacks a uniform stack along a layers axis; the port
+    keeps one dict per layer for every stack)."""
+    dt = dtype_of(cfg)
+    return [bk.cache_spec(cfg, batch, cache_len, dt)
+            for bk in backends_for(cfg)]
+
+
 def init_pools(specs, device) -> list:
-    """Zero-filled pools from ``lm_page_specs``."""
+    """Zero-filled pools or caches from ``lm_page_specs`` or
+    ``lm_cache_specs``.  Zeros, not empty memory: the candidate indices
+    of masked slots are clamped into the cache and read there at
+    weight 0."""
     return [{name: torch.zeros(shape, dtype=dt, device=device)
              for name, (shape, dt) in layer.items()} for layer in specs]
 
 
-def _apply_block(p, x, cfg, *, positions, cache, kv_len, page_table,
-                 scale_base, backend):
+class ModelDef(NamedTuple):
+    """The contiguous-cache entry points the launch steps call, as the
+    reference's ``ModelDef`` bundles them (its other fields are not
+    needed by any port caller yet)."""
+
+    prefill: Callable[..., Any]  # (params, batch, caches, cfg)
+    decode: Callable[..., Any]  # (params, tokens, pos, kv_len, caches, cfg)
+
+
+def make_model_def() -> ModelDef:
+    return ModelDef(prefill=lm_prefill, decode=lm_decode)
+
+
+def _apply_block(p, x, cfg, *, positions, cache, cache_index, kv_len,
+                 page_table, scale_base, backend):
     h, cache = attention_block(
         p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg, positions=positions,
-        cache=cache, kv_len=kv_len, page_table=page_table,
-        scale_base=scale_base, backend=backend)
+        cache=cache, cache_index=cache_index, kv_len=kv_len,
+        page_table=page_table, scale_base=scale_base, backend=backend)
     x = x + h
     x = x + L.apply_mlp(p["ffn"], L.apply_norm(p["ln2"], x, cfg), cfg)
     return x, cache
 
 
-def lm_hidden(params, tokens, cfg, *, positions, caches, kv_len, page_table,
-              scale_base=None):
-    """tokens (B, S) -> final hidden states (B, S, d); pools in place."""
+def lm_hidden(params, tokens, cfg, *, positions=None, caches, kv_len=None,
+              page_table=None, cache_index=None, scale_base=None):
+    """tokens (B, S) -> final hidden states (B, S, d); caches (one dict
+    per layer, paged pools or contiguous caches) are written in place.
+    ``positions`` defaults to arange(S) for every row."""
     x = L.embed_lookup(params["embed"], tokens, cfg, dtype_of(cfg))
+    if positions is None:
+        b, s = tokens.shape
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(b, s)
     for i, bk in enumerate(backends_for(cfg)):
         x, caches[i] = _apply_block(
             params["blocks"][i], x, cfg, positions=positions,
-            cache=caches[i], kv_len=kv_len, page_table=page_table,
-            scale_base=scale_base, backend=bk)
+            cache=caches[i], cache_index=cache_index, kv_len=kv_len,
+            page_table=page_table, scale_base=scale_base, backend=bk)
     return L.apply_norm(params["ln_f"], x, cfg), caches
 
 
@@ -120,6 +157,46 @@ def lm_prefill_paged(params, batch, caches, page_table, cfg):
                            x.shape[1] - 1).long()
     last = x[torch.arange(x.shape[0], device=x.device), last_row]
     return _head_logits(params, last, cfg), caches
+
+
+def lm_prefill(params, batch, caches, cfg):
+    """Prefill into contiguous caches: the forward writing each layer's
+    cache from index 0.  batch: tokens (B, S), every row a full prompt.
+
+    With ``cfg.prefill_chunk`` set, S > chunk and S a chunk multiple, the
+    prompt runs in chunks that attend to the cache so far: chunk i is
+    written at i * chunk and goes through ``backend.decode`` with
+    kv_len (i + 1) * chunk for every row.  Returns (last-token logits
+    (B, V_pad) float32, caches).
+    """
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    chunk = cfg.prefill_chunk
+    if chunk and s > chunk and s % chunk == 0:
+        steps = torch.arange(chunk, dtype=torch.int32, device=tokens.device)
+        for i in range(s // chunk):
+            pos = (i * chunk + steps)[None].expand(b, chunk)
+            kvl = torch.full((b,), (i + 1) * chunk, dtype=torch.int32,
+                             device=tokens.device)
+            x, caches = lm_hidden(
+                params, tokens[:, i * chunk:(i + 1) * chunk], cfg,
+                positions=pos, caches=caches, cache_index=i * chunk,
+                kv_len=kvl)
+        return _head_logits(params, x[:, -1], cfg), caches
+    x, caches = lm_hidden(params, tokens, cfg, caches=caches, cache_index=0)
+    return _head_logits(params, x[:, -1], cfg), caches
+
+
+def lm_decode(params, tokens, pos, kv_len, caches, cfg):
+    """One decode step against contiguous caches. tokens, pos, kv_len:
+    (B,); each row's token is written at its own ``pos``.  Returns
+    (logits (B, V_pad) float32, caches)."""
+    b = tokens.shape[0]
+    x, caches = lm_hidden(
+        params, tokens.reshape(b, 1), cfg,
+        positions=pos.reshape(b, 1).to(torch.int32), caches=caches,
+        cache_index=pos.to(torch.int32), kv_len=kv_len.to(torch.int32))
+    return _head_logits(params, x[:, -1], cfg), caches
 
 
 def lm_decode_paged(params, tokens, pos, kv_len, caches, page_table, cfg,

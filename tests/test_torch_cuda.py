@@ -4,16 +4,22 @@ this file imports no JAX, so it runs where the card is:
 
     python -m pytest -q -m gpu tests/test_torch_cuda.py
 
-Tolerances: stage-1 candidates bit-exact (indices where the value is
-valid: masked candidates' indices are don't-care), flash rows 1e-5 (both
-sides compute in f32 from the same inputs; only the summation order
-differs)."""
+Tolerances: integer scores, stage-1 candidates and bit-sliced products
+bit-exact (candidate indices where the value is valid: masked
+candidates' indices are don't-care), flash rows 1e-5 (both sides compute
+in f32 from the same inputs; only the summation order differs), and
+2**-7 for contiguous flash attention in bf16 (its output is rounded to
+bf16)."""
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import bacam_decode as bdec
+from repro_torch.kernels import bacam_mvm as bmvm
+from repro_torch.kernels import bacam_topk as btk
+from repro_torch.kernels import bitslice_vmm as bsv
+from repro_torch.kernels import flash_attention as fla
 from repro_torch.kernels import paged_flash_decode as pfd
 from repro_torch.kernels.ref import MASKED_SCORE
 
@@ -108,3 +114,124 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         bdec.bacam_paged_topk_stage1(q, kp, pt, n, n, d=64, group=3)
     with pytest.raises(ValueError):  # f16 pools
         pfd.paged_flash_decode(q.float(), kp.half(), kp.half(), pt, n, n)
+
+
+# --- the contiguous-path kernels -------------------------------------------
+
+@pytest.mark.parametrize("b,r,skv,w", [
+    (3, 37, 100, 1), (2, 129, 257, 2), (1, 8, 40, 3), (2, 33, 65, 4),
+    (1, 300, 64, 8)])
+def test_mvm_kernel_matches_plain(cuda, b, r, skv, w):
+    rng = np.random.default_rng(r + skv)
+    q, k = _on(cuda, rng.integers(-2**31, 2**31, (b, r, w)).astype(np.int32),
+               rng.integers(-2**31, 2**31, (b, skv, w)).astype(np.int32))
+    before = bmvm.launches
+    got = bmvm.bacam_mvm(q, k, d=32 * w)
+    want = bmvm.bacam_scores_ref(q, k, 32 * w)
+    torch.cuda.synchronize()
+    assert bmvm.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("r,skv,w,group,s1,causal,window", [
+    (1, 1024, 2, 16, 2, True, None), (24, 96, 2, 8, 1, True, 8),
+    (5, 100, 4, 4, 4, False, None), (130, 300, 2, 16, 2, True, None),
+    (3, 37, 8, 32, 3, True, 5)])
+def test_topk_kernel_matches_plain(cuda, r, skv, w, group, s1, causal,
+                                   window):
+    rng = np.random.default_rng(r * 7 + skv)
+    b = 4
+    q = rng.integers(-2**31, 2**31, (b, r, w)).astype(np.int32)
+    k = rng.integers(-2**31, 2**31, (b, skv, w)).astype(np.int32)
+    kv_len = np.array([skv, 0, skv // 2 + 1, 1], np.int32)
+    q_pos = (np.arange(r, dtype=np.int32)[None] + kv_len[:, None]
+             - r).clip(0).astype(np.int32)
+    args = _on(cuda, q, k, q_pos, kv_len)
+    kw = dict(d=32 * w, group=group, stage1_k=s1, causal=causal,
+              window=window)
+    before = btk.launches
+    got_v, got_i = btk.bacam_topk_stage1(*args, **kw)
+    want_v, want_i = btk.bacam_topk_stage1_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert btk.launches == before + 1
+    assert torch.equal(got_v, want_v)
+    valid = want_v > MASKED_SCORE // 2
+    assert valid.any()
+    assert torch.equal(got_i[valid], want_i[valid])
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_bitslice_kernel_loop_matches_plain(cuda, bits):
+    rng = np.random.default_rng(bits)
+    x = np.where(rng.standard_normal((2, 17, 64)) > 0, 1.0, -1.0)
+    w = rng.integers(-(2 ** (bits - 1)), 2 ** (bits - 1), (2, 33, 64))
+    xt, wt = _on(cuda, x.astype(np.float32), w.astype(np.int32))
+    before, mvm_before = bsv.launches, bmvm.launches
+    got = bsv.bitslice_vmm(xt, wt, bits=bits)
+    want = bsv.bitslice_vmm_ref(xt, wt, bits)
+    torch.cuda.synchronize()
+    assert bsv.launches == before + 1
+    assert bmvm.launches == mvm_before + bits
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,d,causal,off,win", [
+    (2, 64, 64, 64, True, 0, None), (1, 128, 128, 32, True, 0, 48),
+    (2, 16, 128, 64, True, 112, None), (1, 64, 128, 64, False, 0, None),
+    (3, 50, 77, 128, True, 27, None),  # ragged; > 48 KiB shared memory
+    (1, 20, 40, 96, False, 0, 7), (2, 9, 33, 256, True, 24, 5),
+    (1, 8, 20, 32, True, 16, None)])  # rows past Skv: keys >= Skv masked
+def test_flash_attention_kernel_matches_plain(cuda, dtype, b, sq, skv, d,
+                                              causal, off, win):
+    """Every row sees a key (where none does, the kernel writes zeros and
+    the naive plain version a uniform average).  f32 to 1e-5; bf16 to
+    2**-7 (rel + abs): both round an f32 result to bf16, and a different
+    f32 summation order can move it by one bf16 step."""
+    rng = np.random.default_rng(sq + skv + d)
+    q, k, v = _on(cuda, *(rng.standard_normal((b, n, d)).astype(np.float32)
+                          for n in (sq, skv, skv)))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    kw = dict(causal=causal, window=win)
+    before = fla.launches
+    got = fla.flash_attention(q, k, v, off, **kw)
+    want = fla.flash_attention_ref(q, k, v, q_offset=off, **kw)
+    torch.cuda.synchronize()
+    assert fla.launches == before + 1
+    assert got.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 2**-7
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_contiguous_path_launches_kernels_never_plain(cuda, monkeypatch):
+    """use_kernel=True on CUDA tensors: whole prefill launches the BA-CAM
+    matrix kernel once per layer, chunks and decode steps the top-k kernel
+    once per layer, and no plain version runs."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import (init_params, init_pools, lm_cache_specs,
+                                    lm_decode, lm_prefill)
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(bmvm, "bacam_scores_ref", plain)
+    monkeypatch.setattr(btk, "bacam_topk_stage1_plain", plain)
+    for chunk in (0, 4):
+        cfg = smoke_config("camformer-bert", use_kernel=True,
+                           prefill_chunk=chunk)
+        params = init_params(cfg, device=cuda, seed=0)
+        caches = init_pools(lm_cache_specs(cfg, 2, 16), cuda)
+        tokens = torch.randint(0, cfg.vocab, (2, 8), device=cuda)
+        mvm0, topk0 = bmvm.launches, btk.launches
+        logits, caches = lm_prefill(params, {"tokens": tokens}, caches, cfg)
+        n = cfg.n_layers
+        assert bmvm.launches - mvm0 == (0 if chunk else n)
+        assert btk.launches - topk0 == (2 * n if chunk else 0)
+        pos = torch.full((2,), 8, dtype=torch.int32, device=cuda)
+        for _ in range(3):
+            logits, caches = lm_decode(params, logits.argmax(-1), pos,
+                                       pos + 1, caches, cfg)
+            pos = pos + 1
+        torch.cuda.synchronize()
+        assert btk.launches - topk0 == (2 * n if chunk else 0) + 3 * n
+        assert torch.isfinite(logits).all()
