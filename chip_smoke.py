@@ -11,7 +11,9 @@ Phases, in order (each raises on failure; nothing is caught):
      plain PyTorch version on the same inputs on the card (bit-exact for
      integer scores, CAM candidates and bit-sliced products; 1e-5 for the
      f32 flash rows, 2**-7 for bf16 contiguous flash), then CUDA-event
-     times of kernel, plain version and one PyTorch library call;
+     times of kernel, plain version and one PyTorch library call; the
+     bit-sliced VMM is also timed as the per-plane loop over the BA-CAM
+     matrix kernel (its earlier design), for before and after in one run;
   4. parity: small-width models on the card (kernel path) against the
      same models on the CPU (plain path): the paged forward, and the
      contiguous ``lm_prefill`` + 8 ``lm_decode`` steps;
@@ -39,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -53,8 +56,16 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12  # non-tensor-core float32: the kernels' arithmetic
-INT32_OP_PER_S = 67e12  # scalar integer ops issue at the same rate class
+F32_FLOP_PER_S = 67e12  # non-tensor-core float32
+BF16_TC_FLOP_PER_S = 989e12  # tensor cores, bf16 in, f32 accumulate
+TF32_TC_FLOP_PER_S = 495e12  # tensor cores, TF32
+INT8_TC_OP_PER_S = 1979e12  # tensor cores, int8 in, int32 accumulate
+# The data sheet gives no rate for scalar integer work.  The f32 rate is
+# an upper limit for it: xor and add issue at half the f32 FMA rate and
+# popcount at an eighth (CUDA C++ Programming Guide, arithmetic
+# instruction throughput), so an operation bound taken at this rate is a
+# lower bound; the rows that use it are bytes-bound all the same.
+INT32_OP_PER_S = F32_FLOP_PER_S
 
 SEED = 0
 
@@ -152,7 +163,9 @@ def read_launches():
             "bacam_topk_stage1": bacam_topk.launches,
             "bacam_mvm": bacam_mvm.launches,
             "bitslice_vmm": bitslice_vmm.launches,
-            "flash_attention": flash_attention.launches}
+            # one wrapper and one count for the two flash kernels
+            "flash_attention": flash_attention.launches,
+            "flash_attention_f32": flash_attention.launches}
 
 
 @contextlib.contextmanager
@@ -456,75 +469,89 @@ def contiguous_kernel_phase(flush):
         replaces="src/repro/kernels/bacam_topk.py:154", max_abs_err=0.0,
         ms=ms, plain_ms=plain, **bd, library_ms=None))
 
-    # --- bitslice_vmm at bits 4 and 8 on (128, 896, 64) x (128, 896, 64)
+    # --- bitslice_vmm at bits 4 and 8 on (128, 896, 64) x (128, 896, 64):
+    # the kernel (one launch), its plain version, the f32 matmul yardstick
+    # and its earlier design, the per-plane loop over bacam_mvm, for before
+    # and after in one run (its bacam_mvm launches are not path launches)
     n = CONTIG_PROMPT
     x = torch.where(torch.randn((bh, n, d), generator=gen, device=dev) > 0,
                     1.0, -1.0)
     for bits in (4, 8):
         wi = torch.randint(-(2 ** (bits - 1)), 2 ** (bits - 1), (bh, n, d),
                            generator=gen, device=dev, dtype=torch.int32)
+        launches0, mvm0 = bsv.launches, bmvm.launches
         got = bsv.bitslice_vmm(x, wi, bits=bits)
         want = bsv.bitslice_vmm_ref(x, wi, bits)
         torch.cuda.synchronize()
         assert torch.equal(got, want), f"bitslice_vmm bits={bits} differs"
+        assert bsv.launches == launches0 + 1 and bmvm.launches == mvm0, \
+            "bitslice_vmm is one launch of its own kernel"
         wf = wi.to(torch.float32)
         times[bits] = (
             cuda_ms(lambda: bsv.bitslice_vmm(x, wi, bits=bits), flush=flush),
             cuda_ms(lambda: bsv.bitslice_vmm_ref(x, wi, bits), flush=flush),
             # f32 (no TF32): exact, |sums| <= 64 * 128 < 2**24
             cuda_ms(lambda: torch.matmul(x, wf.transpose(1, 2)),
-                    flush=flush))
+                    flush=flush),
+            cuda_ms(lambda: bsv.plane_loop(x, wi, bits=bits), flush=flush))
+        bmvm.launches = mvm0
         log(f"bitslice_vmm bits={bits} ({bh}, {n}, {d}) x ({bh}, {n}, {d}):"
-            f" bit-exact, kernel loop {times[bits][0]:.6g} ms, plain "
-            f"{times[bits][1]:.6g} ms, f32 matmul {times[bits][2]:.6g} ms")
+            f" bit-exact, one launch, kernel {times[bits][0]:.6g} ms, plain "
+            f"{times[bits][1]:.6g} ms, f32 matmul {times[bits][2]:.6g} ms, "
+            f"plane loop {times[bits][3]:.6g} ms")
     outputs = bh * n * n
-    ms, plain, lib = times[8]
+    ms, plain, lib, _ = times[8]
     rows.append(dict(
         name="bitslice_vmm", route="cuda", path="none",
-        source="src/repro_torch/kernels/bitslice_vmm.py (loops "
-               "src/repro_torch/csrc/bacam_mvm.cu)",
+        source="src/repro_torch/csrc/bitslice_vmm.cu",
         replaces="src/repro/kernels/bitslice_vmm.py:29", max_abs_err=0.0,
         ms=ms, plain_ms=plain,
-        # x (f32) and w (int32) read once, int32 y written once; per plane
-        # and output: xor, popc, add per word, then d - 2m, + row_sum,
-        # // 2 and the weighted add
+        # x (f32) and w (int32) read once, int32 y written once; one s8
+        # tensor-core product (bits <= 8: one byte limb), 2 ops per MAC
         **bound(x.numel() * 4 + wi.numel() * 4 + outputs * 4,
-                8 * (3 * w + 4) * outputs / INT32_OP_PER_S),
+                2 * outputs * d / INT8_TC_OP_PER_S),
         library_ms=lib))
     del x, wi, wf, got, want
 
-    # --- flash_attention at (128, 1024, 64), causal, f32 and bf16
+    # --- flash_attention at (128, 1024, 64), causal, f32 and bf16: one
+    # kernel per input type, one row each
     sq = CONTIG_CACHE
     qkv = [torch.randn((bh, sq, d), generator=gen, device=dev)
            for _ in range(3)]
-    pairs = sq * (sq + 1) // 2
-    for dtype, tol in ((torch.float32, 1e-5),
-                       (torch.bfloat16, FLASH_BF16_TOL)):
+    flops = 4 * (sq * (sq + 1) // 2) * d * bh  # causal QK^T and PV
+    for dtype, tol, name, source, op_s in (
+            (torch.float32, 1e-5, "flash_attention_f32",
+             "flash_attention_f32.cu", 3 * flops / TF32_TC_FLOP_PER_S),
+            (torch.bfloat16, FLASH_BF16_TOL, "flash_attention",
+             "flash_attention.cu", flops / BF16_TC_FLOP_PER_S)):
         a = [t.to(dtype) for t in qkv]
         got = fla.flash_attention(*a, causal=True)
         want = fla.flash_attention_ref(*a, causal=True)
         err, ok = close(got, want, tol)
         assert ok, f"flash_attention {dtype}: max abs err {err}"
-        times[dtype] = (
-            err, cuda_ms(lambda: fla.flash_attention(*a, causal=True),
-                         flush=flush),
-            cuda_ms(lambda: fla.flash_attention_ref(*a, causal=True),
-                    flush=flush),
+        row = dict(
+            name=name, route="cuda", path="none",
+            source=f"src/repro_torch/csrc/{source}",
+            replaces="src/repro/kernels/flash_attention.py:104",
+            max_abs_err=err,
+            ms=cuda_ms(lambda: fla.flash_attention(*a, causal=True),
+                       flush=flush),
+            plain_ms=cuda_ms(lambda: fla.flash_attention_ref(*a, causal=True),
+                             flush=flush),
+            # q, k, v read once, out written once; the operations at the
+            # route's rate: bf16 tensor cores, or 3xTF32 (three TF32
+            # products per f32 product) for f32
+            **bound(4 * a[0].numel() * a[0].element_size(), op_s),
             # SDPA on (1, heads, S, D): its fused kernels take 4-D inputs
-            cuda_ms(lambda: F.scaled_dot_product_attention(
-                *(t[None] for t in a), is_causal=True), flush=flush),
-            bound(4 * a[0].numel() * a[0].element_size(),
-                  4 * pairs * d * bh / F32_FLOP_PER_S))
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                *(t[None] for t in a), is_causal=True), flush=flush))
+        rows.append(row)
+        route = "3xTF32" if dtype == torch.float32 else "bf16 tensor cores"
         log(f"flash_attention ({bh}, {sq}, {d}) causal {dtype}: max abs err "
-            f"{err:.3g} (tol {tol:.3g} rel+abs), kernel {times[dtype][1]:.6g}"
-            f" ms, plain {times[dtype][2]:.6g} ms, SDPA "
-            f"{times[dtype][3]:.6g} ms, bound {times[dtype][4]}")
-    err, ms, plain, lib, bd = times[torch.float32]
-    rows.append(dict(
-        name="flash_attention", route="cuda", path="none",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:104",
-        max_abs_err=err, ms=ms, plain_ms=plain, **bd, library_ms=lib))
+            f"{err:.3g} (tol {tol:.3g} rel+abs), kernel {row['ms']:.6g} ms, "
+            f"plain {row['plain_ms']:.6g} ms, SDPA {row['library_ms']:.6g} "
+            f"ms, bound {row['bound_ms']:.6g} ms by {row['bound_by']} "
+            f"(operations at the {route} rate)")
     torch.cuda.synchronize()
     return rows
 
@@ -820,6 +847,19 @@ def contiguous_slice_phase():
     return legs
 
 
+def kernel_instance(mangled):
+    """``name<N>`` of a mangled ``..._kernel<N>`` (Itanium: a name is its
+    length, then its characters)."""
+    for run in re.finditer(r"\d+", mangled):
+        for i in range(run.start(), run.end()):
+            n = int(mangled[i:run.end()])
+            name = mangled[run.end():run.end() + n]
+            if name.endswith("_kernel"):
+                inst = re.match(r"ILi(\d+)E", mangled[run.end() + n:])
+                return name + (f"<{inst.group(1)}>" if inst else "")
+    return mangled
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -840,10 +880,13 @@ def main():
     log(f"build: {time.perf_counter() - t0:.1f}s wall "
         f"({', '.join(f'{k} {v:.1f}s' for k, v in took.items())}) "
         f"into {build.BUILD_DIR}")
-    for name in build.SOURCES:
+    for name in build.SOURCES:  # registers, spills and shared memory
+        kernel = ""
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = kernel_instance(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {name} {kernel}: {line.strip()}")
 
     # 256 MiB, five times the L2, overwritten before each timed launch
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")

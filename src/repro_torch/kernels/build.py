@@ -25,12 +25,12 @@ from typing import Dict, Iterable
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build", "load",
-           "build_log", "entry", "check"]
+           "build_log", "entry", "check", "aligned"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("bacam_decode", "paged_flash_decode", "bacam_topk", "bacam_mvm",
-           "flash_attention")
+           "bitslice_vmm", "flash_attention", "flash_attention_f32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -128,3 +128,9 @@ def check(name: str, t: torch.Tensor, device, dtype, shape):
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, copied if its data does not start 16-byte aligned (for the
+    kernels that read 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()

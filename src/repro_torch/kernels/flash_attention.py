@@ -1,24 +1,28 @@
 """Contiguous flash attention forward, CUDA on the card.
 
 Replaces the TPU kernel ``kernels/flash_attention.py::flash_attention``
-of the reference package.  The CUDA source is ``csrc/flash_attention.cu``;
-its header states the design.
+of the reference package with two CUDA kernels, one per input type:
+``csrc/flash_attention.cu`` (bf16: wgmma tensor-core tiles fed by a TMA
+ring) and ``csrc/flash_attention_f32.cu`` (float32: 3xTF32 mma.sync
+fragments, double-buffered with cp.async).  Their headers state the
+designs.
 
-Bound on the card: at (128, 1024, 64), causal, the function does 17.2
-GFLOP of causally valid f32 work, about 256 us at 67 TFLOP/s, against
-about 30 us of bytes: it is bounded by operations.  The kernel bounds
-its key loop by the causal (and window) limits of each row tile.
+Bound on the card at (128, 1024, 64), causal: in bf16 the 67 MB of q, k,
+v and out (20 us at 3.35 TB/s) against 17.2 GFLOP (17 us at 989
+TFLOP/s); in float32, computed as 3xTF32, 51.6 GFLOP of TF32 products
+(104 us at 495 TFLOP/s) against 134 MB (40 us).
 
 A tensor on the CPU takes the plain version (``ref.flash_attention_ref``);
 a CUDA tensor launches the kernel or raises.  The two agree wherever
 every row sees a key (``q_offset + Sq <= Skv`` under causal masking);
 a row with no valid key is zero from the kernel.  ``launches`` counts
-kernel launches.
+kernel launches of either type.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
@@ -54,16 +58,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim D={d} must be <= 256")
     if b > 65535:
         raise ValueError(f"B={b} exceeds the grid's 65535 batches")
+    if q.numel() == 0 or skv == 0:  # no row, or no key for any row
+        return torch.zeros_like(q)
+    # the kernels read rows in 16-byte pieces: pad D with zero columns to
+    # a multiple of 8 (bf16) or 4 (f32), and start each tensor 16-byte
+    # aligned
+    step = 8 if q.dtype == torch.bfloat16 else 4
+    dp = -(-d // step) * step
+    q, k, v = (build.aligned(F.pad(t, (0, dp - d)) if dp != d else t)
+               for t in (q, k, v))
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
+    symbol = ("flash_attention" if q.dtype == torch.bfloat16
+              else "flash_attention_f32")
     with torch.cuda.device(dev):
-        err = build.entry("flash_attention", "flash_attention", 4, 9, 1)(
+        err = build.entry(symbol, symbol, 4, 8, 1)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            skv, d, int(q_offset), int(causal), int(window is not None),
-            int(window or 0), int(q.dtype == torch.bfloat16), float(scale),
+            skv, dp, int(q_offset), int(causal), int(window is not None),
+            int(window or 0), float(scale),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {err}")
     launches += 1
-    return out
+    return out[..., :d].contiguous() if dp != d else out

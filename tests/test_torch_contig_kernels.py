@@ -157,7 +157,11 @@ def test_bacam_topk_ragged_keys_match_reference(skv, rows):
 
 FLASH_CASES = [(2, 64, 64, 64, True, 0, None), (1, 128, 128, 32, True, 0, 48),
                (2, 16, 128, 64, True, 112, None),
-               (1, 64, 128, 64, False, 0, None)]
+               (1, 64, 128, 64, False, 0, None),
+               # ragged Sq and Skv, D = 96 and 128 (the widths the card's
+               # tests run; causal where Skv is not a key-block multiple)
+               (2, 50, 77, 96, True, 27, None), (1, 40, 64, 128, False, 0, 20),
+               (1, 33, 45, 128, True, 12, 9)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -226,14 +230,19 @@ def test_flash_attention_refuses_what_the_reference_cannot_pad():
 
 # --- bitslice_vmm ----------------------------------------------------------
 
-@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8, 12, 16])
 @pytest.mark.parametrize("b,r,n,d", [(1, 8, 16, 64), (2, 17, 33, 64),
                                      (1, 64, 40, 128)])
 def test_bitslice_vmm_matches_reference(bits, b, r, n, d):
+    """Including w at both ends of its range against an all +1 row (the
+    largest sums of the case)."""
     rng = np.random.default_rng(bits * 100 + r)
     x = _pm1(rng, (b, r, d))
-    w = rng.integers(-(2 ** (bits - 1)), 2 ** (bits - 1),
-                     (b, n, d)).astype(np.int32)
+    lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1)
+    w = rng.integers(lo, hi, (b, n, d)).astype(np.int32)
+    x[:, 0] = 1.0
+    w[:, 0] = lo
+    w[:, -1] = hi - 1
     got = t_ops.bitslice_vmm(torch.from_numpy(x), torch.from_numpy(w),
                              bits=bits)
     assert got.dtype == torch.int32

@@ -160,18 +160,30 @@ def test_topk_kernel_matches_plain(cuda, r, skv, w, group, s1, causal,
     assert torch.equal(got_i[valid], want_i[valid])
 
 
-@pytest.mark.parametrize("bits", [2, 4, 8])
-def test_bitslice_kernel_loop_matches_plain(cuda, bits):
-    rng = np.random.default_rng(bits)
-    x = np.where(rng.standard_normal((2, 17, 64)) > 0, 1.0, -1.0)
-    w = rng.integers(-(2 ** (bits - 1)), 2 ** (bits - 1), (2, 33, 64))
+@pytest.mark.parametrize("bits,b,r,n,d", [
+    (1, 2, 17, 33, 64), (2, 2, 17, 33, 64), (4, 2, 17, 33, 64),
+    (8, 2, 17, 33, 64), (8, 1, 64, 128, 32), (8, 3, 65, 129, 256),
+    (12, 2, 70, 200, 96), (16, 1, 130, 257, 256), (24, 2, 33, 50, 64),
+    (4, 1, 1, 1, 32)])
+def test_bitslice_kernel_one_launch_matches_plain(cuda, bits, b, r, n, d):
+    """One kernel launch and no BA-CAM launch per call, bit-exact.  w at
+    both ends of its range against an all +1 row gives the largest sums
+    of the case, all under 2**31 (the float64 plain version converts to
+    int32 exactly only there; the kernel wraps)."""
+    rng = np.random.default_rng(bits * 1000 + r + n)
+    x = np.where(rng.standard_normal((b, r, d)) > 0, 1.0, -1.0)
+    lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1)
+    w = rng.integers(lo, hi, (b, n, d))
+    x[:, 0] = 1.0
+    w[:, 0] = lo
+    w[:, -1] = hi - 1
     xt, wt = _on(cuda, x.astype(np.float32), w.astype(np.int32))
     before, mvm_before = bsv.launches, bmvm.launches
     got = bsv.bitslice_vmm(xt, wt, bits=bits)
     want = bsv.bitslice_vmm_ref(xt, wt, bits)
     torch.cuda.synchronize()
     assert bsv.launches == before + 1
-    assert bmvm.launches == mvm_before + bits
+    assert bmvm.launches == mvm_before
     assert torch.equal(got, want)
 
 
@@ -181,7 +193,14 @@ def test_bitslice_kernel_loop_matches_plain(cuda, bits):
     (2, 16, 128, 64, True, 112, None), (1, 64, 128, 64, False, 0, None),
     (3, 50, 77, 128, True, 27, None),  # ragged; > 48 KiB shared memory
     (1, 20, 40, 96, False, 0, 7), (2, 9, 33, 256, True, 24, 5),
-    (1, 8, 20, 32, True, 16, None)])  # rows past Skv: keys >= Skv masked
+    (1, 8, 20, 32, True, 16, None),  # rows past Skv: keys >= Skv masked
+    # the tile edges: Sq = 1, Sq and Skv off the 64/128-row and 64-key
+    # tiles, D = 32, 96, 256 and one the wrapper pads (20), windows
+    (1, 1, 64, 64, True, 63, None), (2, 1, 300, 256, True, 299, None),
+    (2, 130, 200, 64, True, 70, None), (1, 70, 70, 32, False, 0, None),
+    (2, 100, 150, 96, True, 50, 33), (1, 129, 129, 256, True, 0, None),
+    (1, 33, 300, 128, False, 0, 64), (2, 40, 30, 64, True, 10, None),
+    (1, 10, 24, 20, True, 14, None), (2, 300, 700, 64, True, 400, 200)])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, b, sq, skv, d,
                                               causal, off, win):
     """Every row sees a key (where none does, the kernel writes zeros and
