@@ -13,7 +13,8 @@ Phases, in order (each raises on failure; nothing is caught):
      f32 flash rows, 2**-7 for bf16 contiguous flash), then CUDA-event
      times of kernel, plain version and one PyTorch library call; the
      bit-sliced VMM is also timed as the per-plane loop over the BA-CAM
-     matrix kernel (its earlier design), for before and after in one run;
+     matrix kernel (its earlier design), for before and after in one run,
+     and the split-KV paged flash decode with 1 and 2 pages a split;
   4. parity: small-width models on the card (kernel path) against the
      same models on the CPU (plain path): the paged forward, and the
      contiguous ``lm_prefill`` + 8 ``lm_decode`` steps;
@@ -299,14 +300,64 @@ def kernel_phase(flush):
                   + table.numel() * 4 + 2 * b * 4 + got.numel() * 4)
         # QK^T and PV, 2 FLOPs per multiply-add, over causal (row, key)
         flops = 2 * 2 * causal_keys(kv_len, q_pos, sq) * hkv * d
+        design, _ = pfd.plan(b, hkv, sq, d, d, page, np_, sq, True)
+        if pfd.DESIGNS[design] == "split-KV":  # f32 FMA on the CUDA cores
+            op_s = flops / F32_FLOP_PER_S
+            for pages in (1, 2):  # pages per split, 1 (the wrapper's) vs 2
+                run = lambda: pfd.launch(*a, sq=sq, split_pages=pages)
+                err_sp, ok = close(run(), want, 1e-5)
+                assert ok, f"{name} {pages} pages a split: max abs err {err_sp}"
+                log(f"{name}: split-KV, {pages} page(s) of {page} keys a "
+                    f"split, {-(-np_ // pages)} splits, kernel "
+                    f"{cuda_ms(run, flush=flush):.6g} ms")
+            log(f"{name}: timed below with 1 page a split, "
+                f"{np_} splits of grid")
+        else:  # QK^T in f32 FMA, PV in three bf16 parts on the tensor
+            # cores: separate units, so the larger of the two times
+            op_s = max(flops / 2 / F32_FLOP_PER_S,
+                       3 * flops / 2 / BF16_TC_FLOP_PER_S)
+            log(f"{name}: design {pfd.DESIGNS[design]} (P V on the tensor"
+                f" cores), operations {op_s * 1e3:.6g} ms (QK^T "
+                f"{flops / 2e9:.4g} GFLOP f32, PV 3 x {flops / 2e9:.4g} "
+                f"GFLOP bf16); all in f32 FMA it was "
+                f"{flops / F32_FLOP_PER_S * 1e3:.6g} ms")
         rows.append(dict(
             name=name, route="cuda", path="paged",
             source="src/repro_torch/csrc/paged_flash_decode.cu",
             replaces="src/repro/kernels/paged_flash_decode.py:228",
             max_abs_err=err, ms=cuda_ms(kern, flush=flush),
-            plain_ms=cuda_ms(plain, flush=flush),
-            **bound(bytes_, flops / F32_FLOP_PER_S),
+            plain_ms=cuda_ms(plain, flush=flush), **bound(bytes_, op_s),
             library_ms=cuda_ms(library, flush=flush)))
+        log(f"{name}: kernel {rows[-1]['ms']:.6g} ms, SDPA "
+            f"{rows[-1]['library_ms']:.6g} ms, bound "
+            f"{rows[-1]['bound_ms']:.6g} ms by {rows[-1]['bound_by']}")
+
+    # --- split-KV edges on bf16 pools, checked only: 16-key pages (up to
+    # 63 splits), kv_len one key into a page, a window across split
+    # boundaries, and G = 8 rows per kv head
+    edges = [(1, 16, 64, torch.tensor([1000, 17, 0, 1, 64, 65, 999, 512],
+                                      dtype=torch.int32), None),
+             (1, 16, 64, torch.tensor([1000, 17, 0, 1, 64, 65, 999, 512],
+                                      dtype=torch.int32), 40),
+             (8, 64, 16, ragged, None), (8, 64, 16, ragged, 100)]
+    for g, epage, enp, kv_len, window in edges:
+        ehkv = 4 if g > 1 else hkv
+        kpool, table = ragged_pool(gen, b, ehkv, epage, enp, kv_len,
+                                   torch.bfloat16, d)
+        vpool, _ = ragged_pool(gen, b, ehkv, epage, enp, kv_len,
+                               torch.bfloat16, d)
+        qr = torch.randn((b, ehkv, g, d), generator=gen) * d**-0.5
+        q_pos = torch.clamp(kv_len - 1, min=0)
+        a = [t.to(dev).contiguous()
+             for t in (qr, kpool, vpool, table, kv_len, q_pos)]
+        got = pfd.paged_flash_decode(*a, window=window)
+        want = pfd.paged_flash_decode_ref(*a, window=window)
+        err, ok = close(got, want, 1e-5)
+        label = (f"paged_flash_decode split-KV G={g} page {epage} x {enp} "
+                 f"window {window} kv_len {kv_len.tolist()}")
+        assert ok, f"{label}: max abs err {err}"
+        assert torch.all(got[(kv_len == 0).to(dev)] == 0), f"{label}: inert"
+        log(f"{label}: max abs err {err:.3g} (tol 1e-5 rel+abs)")
 
     # --- options at small shapes: f32 pools, GQA rows, binary, window
     b, hkv, g, d, page, np_ = 3, 2, 4, 32, 8, 4
@@ -403,6 +454,16 @@ def contiguous_kernel_phase(flush):
     kf = unpack_bits(k, d).to(torch.bfloat16)
     assert torch.equal(torch.matmul(qf, kf.transpose(1, 2)).to(torch.int32),
                        got), "bf16 matmul yardstick is not exact"
+    bf16_ms = cuda_ms(lambda: torch.matmul(qf, kf.transpose(1, 2)),
+                      flush=flush)
+    # the yardstick that writes 4-byte scores, as the function does
+    # (exact: sums of 64 products of ±1)
+    library = lambda: torch.bmm(qf, kf.transpose(1, 2),
+                                out_dtype=torch.float32)
+    assert torch.equal(library().to(torch.int32), got), \
+        "f32-output bmm yardstick is not exact"
+    log(f"bacam_mvm yardsticks: bf16 matmul (2-byte scores) {bf16_ms:.6g} "
+        f"ms")
     outputs = bh * s * s
     rows.append(dict(
         name="bacam_mvm", route="cuda", path="contiguous",
@@ -415,8 +476,10 @@ def contiguous_kernel_phase(flush):
         # and add per word of each score
         **bound(2 * bh * s * w * 4 + outputs * 4,
                 3 * w * outputs / INT32_OP_PER_S),
-        library_ms=cuda_ms(lambda: torch.matmul(qf, kf.transpose(1, 2)),
-                           flush=flush)))
+        library_ms=cuda_ms(library, flush=flush)))
+    log(f"bacam_mvm: kernel {rows[-1]['ms']:.6g} ms, f32-output bmm "
+        f"{rows[-1]['library_ms']:.6g} ms, bound {rows[-1]['bound_ms']:.6g}"
+        f" ms")
     del got, want, qf, kf
 
     # --- bacam_topk_stage1: a decode step (R = 1, ragged kv_len up to

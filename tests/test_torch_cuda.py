@@ -75,17 +75,36 @@ def test_bacam_kernel_matches_plain(cuda, r, w, page, group, s1, window):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("g,sq,d,page,binary,window", [
-    (1, 1, 64, 64, False, None), (4, 1, 32, 8, True, None),
-    (2, 5, 128, 16, False, 7), (1, 40, 64, 64, False, None),
-    (1, 8, 128, 64, False, None),  # f32: > 48 KiB of shared memory
-    (4, 3, 32, 8, True, 6)])
+@pytest.mark.parametrize("g,sq,d,page,binary,window,np_,lens", [
+    (1, 1, 64, 64, False, None, 5, None), (4, 1, 32, 8, True, None, 5, None),
+    (2, 5, 128, 16, False, 7, 5, None), (1, 40, 64, 64, False, None, 5, None),
+    (1, 8, 128, 64, False, None, 5, None),  # f32: > 48 KiB of shared memory
+    (4, 3, 32, 8, True, 6, 5, None),
+    # the split-KV decode and tensor-core chunk designs' edges
+    (1, 1, 64, 16, False, None, 64, (1000, 0, 17, 1)),  # many splits
+    (1, 1, 64, 64, False, None, 5, (129, 0, 65, 1)),  # one key into a page
+    (1, 16, 64, 64, False, None, 5, (129, 0, 65, 17)),
+    (8, 1, 64, 64, False, None, 5, None),  # G = 8 decode rows
+    (8, 1, 128, 16, True, 20, 8, (100, 0, 33, 128)),
+    (1, 384, 64, 64, False, None, 7, (64, 0, 200, 384)),  # padding rows
+    (1, 1, 64, 16, False, 24, 8, (100, 0, 40, 17)),  # window over splits
+    (2, 40, 64, 64, True, None, 5, None),  # binary K, chunk rows
+    (1, 1, 64, 64, True, None, 5, None),
+    # pages past one 64-key tile: a tile or split starts inside a page
+    (1, 1, 64, 128, False, None, 4, (300, 0, 129, 1)),
+    (1, 40, 64, 128, False, None, 4, (300, 0, 129, 17)),
+    (4, 1, 64, 256, False, 100, 3, (600, 0, 257, 1)),
+    (2, 40, 64, 256, True, 30, 3, (600, 0, 257, 64))])
 def test_flash_kernel_matches_plain(cuda, dtype, g, sq, d, page, binary,
-                                    window):
+                                    window, np_, lens):
     rng = np.random.default_rng(sq * 10 + g)
-    b, hkv, np_ = 4, 2, 5
-    kv_len = np.array([np_ * page, 0, page + sq, 2 * page - 1], np.int32)
-    kv_len = np.maximum(kv_len, np.where(kv_len > 0, sq, 0)).astype(np.int32)
+    b, hkv = 4, 2
+    if lens is None:
+        kv_len = np.array([np_ * page, 0, page + sq, 2 * page - 1], np.int32)
+        kv_len = np.maximum(kv_len, np.where(kv_len > 0, sq, 0))
+    else:  # chunk rows past a short kv_len are padding rows
+        kv_len = np.array(lens)
+    kv_len = kv_len.astype(np.int32)
     q = rng.standard_normal((b, hkv, g * sq, d)).astype(np.float32)
     k = rng.standard_normal((1 + b * np_, hkv, page, d)).astype(np.float32)
     v = rng.standard_normal((1 + b * np_, hkv, page, d)).astype(np.float32)
@@ -101,6 +120,35 @@ def test_flash_kernel_matches_plain(cuda, dtype, g, sq, d, page, binary,
     assert pfd.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     assert torch.all(got[1] == 0)  # kv_len == 0: zeros
+
+
+def _ws(n_splits, rows, dv):  # split workspace floats at B = 2, H_kv = 3
+    return 2 * 3 * n_splits * rows * (dv + 2)
+
+
+@pytest.mark.parametrize("args,split_pages,design,ws", [
+    # camformer-bert's decode step and prefill chunk (d 64, 64-key pages)
+    ((1, 64, 64, 64, 16, 1, True), 1, "split-KV", _ws(16, 1, 64)),
+    ((384, 64, 64, 64, 16, 384, True), 1, "chunk tiles", 0),
+    ((8, 128, 128, 16, 64, 1, True), 1, "split-KV", _ws(64, 8, 128)),  # G 8
+    ((9, 128, 128, 16, 64, 1, True), 1, "chunk tiles", 0),  # > 8 rows
+    ((9, 64, 64, 64, 16, 1, False), 1, "SIMT", 0),
+    ((12, 64, 64, 64, 16, 3, False), 1, "SIMT", 0),  # f32 chunk rows
+    ((12, 32, 32, 8, 4, 3, True), 1, "SIMT", 0),  # 8-key pages
+    ((12, 256, 256, 64, 4, 3, True), 1, "SIMT", 0),  # D > 128
+    ((12, 64, 64, 128, 4, 3, True), 1, "chunk tiles", 0),
+    ((12, 64, 64, 96, 4, 3, True), 1, "SIMT", 0),  # 96-key pages
+    ((1, 48, 48, 64, 4, 1, True), 1, "SIMT", 0),  # 6 chunks a row
+    ((4, 256, 256, 64, 4, 1, False), 1, "split-KV", _ws(4, 4, 256)),
+    ((1, 256, 256, 256, 4, 1, False), 1, "SIMT", 0),  # > 227 KB
+    ((2, 64, 64, 128, 5, 1, True), 1, "split-KV", _ws(5, 2, 64)),
+    ((1, 64, 64, 64, 15, 1, True), 2, "split-KV", _ws(8, 1, 64)),
+    ((1, 256, 256, 64, 8, 1, False), 2, "SIMT", 0)])  # 2 pages too large
+def test_flash_plan_picks_design(cuda, args, split_pages, design, ws):
+    """The source's choice among its three designs, from the shapes (rows,
+    D, Dv, page, NP, sq, bf16) alone, and the workspace it asks for."""
+    got, got_ws = pfd.plan(2, 3, *args, split_pages=split_pages)
+    assert (pfd.DESIGNS[got], got_ws) == (design, ws)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -153,6 +153,31 @@ def test_flash_plain_bf16_pools():
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("page,np_,sq,g,window", [
+    (128, 3, 1, 1, None), (128, 3, 40, 2, None), (256, 2, 1, 4, 100),
+    (256, 2, 40, 1, 30)])
+def test_flash_plain_large_pages(page, np_, sq, g, window):
+    """Pages of 128 and 256 keys (``--page_size`` takes any multiple of the
+    group size): keys start part-way into a page's 64-key tiles, and a
+    slot ends one key into its last page."""
+    rng = np.random.default_rng(page + sq)
+    b, hkv, d = 3, 2, 32
+    n_pages = 1 + b * np_
+    kv_len = np.array([np_ * page, 0, page + 1], np.int32)
+    q = rng.standard_normal((b, hkv, g * sq, d)).astype(np.float32)
+    k = rng.standard_normal((n_pages, hkv, page, d)).astype(np.float32)
+    v = rng.standard_normal((n_pages, hkv, page, d)).astype(np.float32)
+    table = _table(rng, b, np_, n_pages, kv_len, page)
+    q_pos = np.maximum(kv_len - sq, 0).astype(np.int32)
+    kw = dict(sq=sq, window=window)
+    got = t_pfd.paged_flash_decode(*_t(q, k, v, table, kv_len, q_pos), **kw)
+    jargs = [jnp.asarray(x) for x in (q, k, v, table, kv_len, q_pos)]
+    pallas = j_pfd.paged_flash_decode(*jargs, interpret=True, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=1e-5,
+                               atol=1e-5)
+    assert np.all(got.numpy()[1] == 0)  # kv_len == 0: zeros
+
+
 @pytest.mark.parametrize("sq", [1, 4])
 def test_flash_ops_wrappers_match_reference(sq):
     """Query pre-scaling, temperature folding and the GQA row fold
