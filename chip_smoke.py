@@ -7,14 +7,18 @@ Phases, in order (each raises on failure; nothing is caught):
   1. the card's name and power limit (``nvidia-smi``);
   2. build every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc``
      per source, started together) into ``build/``;
-  3. kernels: at the shapes of the paths below, each kernel against its
+  3. kernels: the launch floor (a one-element ``zero_()`` timed as the
+     kernels are); at the shapes of the paths below, each kernel against its
      plain PyTorch version on the same inputs on the card (bit-exact for
      integer scores, CAM candidates and bit-sliced products; 1e-5 for the
      f32 flash rows, 2**-7 for bf16 contiguous flash), then CUDA-event
      times of kernel, plain version and one PyTorch library call; the
      bit-sliced VMM is also timed as the per-plane loop over the BA-CAM
      matrix kernel (its earlier design), for before and after in one run,
-     and the split-KV paged flash decode with 1 and 2 pages a split;
+     the split-KV paged flash decode with 1 and 2 pages a split, and the
+     stage-1 prefill chunk beside two fill_() of its candidate tensors;
+     the stage-1 checks cover every index, fully masked groups (base + s),
+     all-tie groups, stage1_k = group = 32 and GQA rows;
   4. parity: small-width models on the card (kernel path) against the
      same models on the CPU (plain path): the paged forward, and the
      contiguous ``lm_prefill`` + 8 ``lm_decode`` steps;
@@ -31,8 +35,10 @@ Phases, in order (each raises on failure; nothing is caught):
      on the card.
 
 The line before the last is the ``kernels`` JSON object (one row per
-kernel; ``path`` names the run that launches it: ``paged``,
-``contiguous`` or ``none``); the last line is ``{"ok": true, "device":
+kernel and shape: the paged flash and contiguous stage-1 kernels have a
+second ``(sq>1)`` row for their prefill chunks; ``path`` names the run
+that launches it: ``paged``, ``contiguous`` or ``none``); the last line
+is ``{"ok": true, "device":
 {...}}``.  Without a CUDA card, or without the rest of the repository
 next to this file, it exits non-zero and prints no result.
 """
@@ -125,6 +131,40 @@ def close(got, want, tol):
     return float(err.max()), not bool(bad.any())
 
 
+def check_candidates(label, got, want, group, stage1_k):
+    """Stage-1 candidates bit-exact: values everywhere, indices everywhere
+    (on valid candidates, and the lowest masked indices the plain stable
+    top-k picks), and base + s on every fully masked group (its first
+    candidate is masked).  Returns the numbers of valid candidates and of
+    fully masked groups."""
+    from repro_torch.kernels.ref import MASKED_SCORE
+
+    (got_v, got_i), (want_v, want_i) = got, want
+    torch.cuda.synchronize()
+    assert torch.equal(got_v, want_v), f"{label}: values differ"
+    valid = want_v > MASKED_SCORE // 2
+    assert torch.equal(got_i[valid], want_i[valid]), \
+        f"{label}: indices differ on valid candidates"
+    assert torch.equal(got_i, want_i), f"{label}: masked indices differ"
+    v = got_v.reshape(*got_v.shape[:-1], -1, stage1_k)
+    dead = v[..., 0] == MASKED_SCORE
+    ar = torch.arange(v.shape[-2], dtype=torch.int32, device=v.device)
+    base = (ar * group)[:, None] + torch.arange(
+        stage1_k, dtype=torch.int32, device=v.device)
+    assert torch.equal(got_i.reshape(v.shape)[dead],
+                       base.expand_as(v)[dead]), \
+        f"{label}: fully masked groups' indices are not base + s"
+    return int(valid.sum()), int(dead.sum())
+
+
+def launch_floor(flush):
+    """The time one trivial launch takes under cuda_ms (a one-element
+    zero_(), the L2 flushed before it): each kernel's time is this floor
+    plus its work."""
+    one = torch.empty(1, dtype=torch.int32, device="cuda")
+    return cuda_ms(one.zero_, flush=flush)
+
+
 # ---------------------------------------------------------------------------
 # launch counts and plain-version calls
 
@@ -146,9 +186,12 @@ def kernel_modules():
 def reset_launches():
     from repro_torch.kernels import paged_flash_decode
 
+    from repro_torch.kernels import bacam_topk
+
     for mod in kernel_modules():
         mod.launches = 0
     paged_flash_decode.prefill_launches = 0
+    bacam_topk.prefill_launches = 0
 
 
 def read_launches():
@@ -161,7 +204,9 @@ def read_launches():
     return {"bacam_paged_topk_stage1": bacam_decode.launches,
             "paged_flash_decode": pfd.launches - pfd.prefill_launches,
             "paged_flash_decode (sq>1)": pfd.prefill_launches,
-            "bacam_topk_stage1": bacam_topk.launches,
+            "bacam_topk_stage1": bacam_topk.launches
+            - bacam_topk.prefill_launches,
+            "bacam_topk_stage1 (sq>1)": bacam_topk.prefill_launches,
             "bacam_mvm": bacam_mvm.launches,
             "bitslice_vmm": bitslice_vmm.launches,
             # one wrapper and one count for the two flash kernels
@@ -205,7 +250,6 @@ def kernel_phase(flush):
     from repro_torch.core.bacam import pack_bits
     from repro_torch.kernels import bacam_decode as bdec
     from repro_torch.kernels import paged_flash_decode as pfd
-    from repro_torch.kernels.ref import MASKED_SCORE
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
@@ -217,33 +261,39 @@ def kernel_phase(flush):
 
     # --- bacam stage-1 at the decode shapes: 8 slots, 16 kv heads, R = 1,
     # W = 2 (d = 64), 64-key pages, 16 pages (1024 tokens).  Checked on
-    # ragged + inert slots with each option, and at the slice's mid-decode
-    # kv_len, which is also the timed case.
-    b, hkv, r, d, page, np_ = 8, 16, 1, 64, 64, 16
+    # ragged + inert slots (table entries past kv_len on the trash page)
+    # with each option, GQA rows (R = G = 8) with a window, all-tie groups
+    # (one key word per group) and stage1_k = group = 32, then at the
+    # slice's mid-decode kv_len, which is also the timed case.
+    b, hkv, d, page, np_ = 8, 16, 64, 64, 16
     default = dict(group=16, stage1_k=2, window=None)
-    cases = [(ragged, default), (ragged, dict(group=16, stage1_k=2,
-                                              window=100)),
-             (ragged, dict(group=4, stage1_k=3, window=None)),
-             (decode_len, default)]
-    for kv_len, kw in cases:
+    cases = [(ragged, default, 1, False),
+             (ragged, dict(group=16, stage1_k=2, window=100), 1, False),
+             (ragged, dict(group=4, stage1_k=3, window=None), 1, False),
+             (ragged, dict(group=16, stage1_k=2, window=100), 8, False),
+             (ragged, default, 1, True),
+             (ragged, dict(group=32, stage1_k=32, window=None), 1, False),
+             (decode_len, default, 1, False)]
+    for kv_len, kw, r, ties in cases:
         kp, table = ragged_pool(gen, b, hkv, page, np_, kv_len,
                                 torch.float32, d)
         kp = pack_bits(kp)
+        if ties:  # every key of a group carries its first key's words
+            kp = kp[:, :, ::kw["group"]].repeat_interleave(kw["group"], 2)
         q = pack_bits(torch.randn((b, hkv, r, d), generator=gen))
         q_pos = torch.clamp(kv_len - 1, min=0)
         args = [t.to(dev).contiguous() for t in (q, kp, table, kv_len, q_pos)]
-        got_v, got_i = bdec.bacam_paged_topk_stage1(*args, d=d, **kw)
-        want_v, want_i = bdec.bacam_paged_topk_ref(
+        got = bdec.bacam_paged_topk_stage1(*args, d=d, **kw)
+        want = bdec.bacam_paged_topk_ref(
             args[0], args[1], args[2], args[3], d, q_pos=args[4],
             group_size=kw["group"], stage1_k=kw["stage1_k"],
             window=kw["window"])
-        torch.cuda.synchronize()
-        valid = want_v > MASKED_SCORE // 2
-        assert torch.equal(got_v, want_v), f"bacam values differ {kw}"
-        assert torch.equal(got_i[valid], want_i[valid]), \
-            f"bacam indices differ on valid candidates {kw}"
-        log(f"bacam_paged_topk_stage1 kv_len {kv_len.tolist()} {kw}: "
-            f"bit-exact ({int(valid.sum())} valid candidates)")
+        n_valid, n_dead = check_candidates(
+            f"bacam_paged_topk_stage1 {kw} R={r} ties={ties}", got, want,
+            kw["group"], kw["stage1_k"])
+        log(f"bacam_paged_topk_stage1 kv_len {kv_len.tolist()} {kw} R={r}"
+            f"{' all ties' if ties else ''}: bit-exact ({n_valid} valid "
+            f"candidates, {n_dead} fully masked groups at base + s)")
     # args, q, kv_len, q_pos are now the mid-decode case
     kern = lambda: bdec.bacam_paged_topk_stage1(*args, d=d)
     plain = lambda: bdec.bacam_paged_topk_ref(
@@ -251,15 +301,18 @@ def kernel_phase(flush):
     keys = causal_keys(kv_len, q_pos, 1)
     ncand = 2 * (page // 16) * np_
     bytes_ = (q.numel() * 4 + keys * hkv * (d // 32) * 4
-              + table.numel() * 4 + 2 * b * 4 + 2 * b * hkv * r * ncand * 4)
-    ops = 3 * keys * hkv * r * (d // 32)  # xor, popc, add per word
+              + table.numel() * 4 + 2 * b * 4 + 2 * b * hkv * ncand * 4)
+    ops = 3 * keys * hkv * (d // 32)  # xor, popc, add per word
+    ms = cuda_ms(kern, flush=flush)
     rows.append(dict(
         name="bacam_paged_topk_stage1", route="cuda", path="paged",
         source="src/repro_torch/csrc/bacam_decode.cu",
         replaces="src/repro/kernels/bacam_decode.py:137",
-        max_abs_err=0.0, ms=cuda_ms(kern, flush=flush),
-        plain_ms=cuda_ms(plain, flush=flush),
+        max_abs_err=0.0, ms=ms, plain_ms=cuda_ms(plain, flush=flush),
         **bound(bytes_, ops / INT32_OP_PER_S), library_ms=None))
+    log(f"bacam_paged_topk_stage1 (decode): kernel {ms:.6g} ms"
+        f", plain {rows[-1]['plain_ms']:.6g} ms, bound "
+        f"{rows[-1]['bound_ms']:.6g} ms by {rows[-1]['bound_by']}")
 
     # --- paged flash attention on bf16 pools.  The two cases with a name
     # are the slice's own (mid-decode, and its one prefill chunk: 384
@@ -429,7 +482,6 @@ def contiguous_kernel_phase(flush):
     from repro_torch.kernels import bacam_topk as btk
     from repro_torch.kernels import bitslice_vmm as bsv
     from repro_torch.kernels import flash_attention as fla
-    from repro_torch.kernels.ref import MASKED_SCORE
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -483,60 +535,92 @@ def contiguous_kernel_phase(flush):
     del got, want, qf, kf
 
     # --- bacam_topk_stage1: a decode step (R = 1, ragged kv_len up to
-    # 1024, q_pos = kv_len - 1), timed; then the last 128-row chunk of the
-    # chunked prefill (q_pos 768..895, kv_len 896), checked and timed
+    # 1024, q_pos = kv_len - 1) and the last 128-row chunk of the chunked
+    # prefill (q_pos 768..895, kv_len 896), checked and timed; checked only:
+    # the first chunk (q_pos 0..127, kv_len 128: seven eighths of the key
+    # tiles masked for every row), a chunk whose groups all tie (one key
+    # word per group) and stage1_k = group = 32
     lens = torch.tensor([1024, 1000, 897, 960, 1023, 900, 512, 1],
                         dtype=torch.int32, device=dev)[:CONTIG_B]
     k = words(bh, CONTIG_CACHE, w)
-    cases = []
     kv_len = lens.repeat_interleave(16)
-    cases.append(("decode step", words(bh, 1, w),
-                  (kv_len - 1)[:, None].contiguous(), kv_len))
-    c0 = CONTIG_PROMPT - CONTIG_CHUNK
-    pos = (c0 + torch.arange(CONTIG_CHUNK, dtype=torch.int32, device=dev))
-    cases.append(("prefill chunk", words(bh, CONTIG_CHUNK, w),
-                  pos[None].expand(bh, -1).contiguous(),
-                  torch.full((bh,), CONTIG_PROMPT, dtype=torch.int32,
-                             device=dev)))
-    times = {}
-    for label, qq, q_pos, kvl in cases:
-        kw = dict(d=d, group=16, stage1_k=2, causal=True)
-        got_v, got_i = btk.bacam_topk_stage1(qq, k, q_pos, kvl, **kw)
-        want_v, want_i = btk.bacam_topk_stage1_plain(qq, k, q_pos, kvl, **kw)
-        torch.cuda.synchronize()
-        valid = want_v > MASKED_SCORE // 2
-        assert torch.equal(got_v, want_v), f"bacam_topk values ({label})"
-        assert torch.equal(got_i[valid], want_i[valid]), \
-            f"bacam_topk indices on valid candidates ({label})"
-        times[label] = (
-            cuda_ms(lambda: btk.bacam_topk_stage1(qq, k, q_pos, kvl, **kw),
-                    flush=flush),
-            cuda_ms(lambda: btk.bacam_topk_stage1_plain(qq, k, q_pos, kvl,
-                                                        **kw), flush=flush))
+    full = lambda n: torch.full((bh,), n, dtype=torch.int32, device=dev)
+    chunk_pos = lambda c0: (c0 + torch.arange(
+        CONTIG_CHUNK, dtype=torch.int32, device=dev))[None].expand(
+            bh, -1).contiguous()
+    last = CONTIG_PROMPT - CONTIG_CHUNK
+    k_ties = k[:, ::16].repeat_interleave(16, 1)
+    default = dict(group=16, stage1_k=2)
+    cases = [  # label, row name when timed, q, keys, q_pos, kv_len, options
+        ("decode step", "bacam_topk_stage1", words(bh, 1, w), k,
+         (kv_len - 1)[:, None].contiguous(), kv_len, default),
+        ("last prefill chunk", "bacam_topk_stage1 (sq>1)",
+         words(bh, CONTIG_CHUNK, w), k, chunk_pos(last), full(CONTIG_PROMPT),
+         default),
+        ("first prefill chunk", None, words(bh, CONTIG_CHUNK, w), k,
+         chunk_pos(0), full(CONTIG_CHUNK), default),
+        ("prefill chunk, all ties", None, words(bh, CONTIG_CHUNK, w), k_ties,
+         chunk_pos(last), full(CONTIG_PROMPT), default),
+        ("prefill chunk, stage1_k = group = 32", None,
+         words(bh, CONTIG_CHUNK, w), k, chunk_pos(last), full(CONTIG_PROMPT),
+         dict(group=32, stage1_k=32))]
+    for label, name, qq, kk, q_pos, kvl, opts in cases:
+        kw = dict(d=d, causal=True, **opts)
+        got = btk.bacam_topk_stage1(qq, kk, q_pos, kvl, **kw)
+        want = btk.bacam_topk_stage1_plain(qq, kk, q_pos, kvl, **kw)
+        n_valid, n_dead = check_candidates(f"bacam_topk_stage1 {label}", got,
+                                           want, opts["group"],
+                                           opts["stage1_k"])
+        log(f"bacam_topk_stage1 {label} ({bh} x {qq.shape[1]} rows, "
+            f"{CONTIG_CACHE} keys, {opts}): bit-exact ({n_valid} valid "
+            f"candidates, {n_dead} fully masked groups at base + s)")
+        if name is None:
+            continue
+        run = lambda: btk.bacam_topk_stage1(qq, kk, q_pos, kvl, **kw)
+        ms = cuda_ms(run, flush=flush)
+        plain = cuda_ms(lambda: btk.bacam_topk_stage1_plain(
+            qq, kk, q_pos, kvl, **kw), flush=flush)
         # the live keys each row needs, read once per (b, kv head) row set
         pairs = int(torch.minimum(kvl[:, None], q_pos + 1).clamp(
             min=0).sum())
         live = int(torch.clamp(torch.minimum(kvl, q_pos.max(1).values + 1),
                                min=0).sum())
         bytes_ = (qq.numel() * 4 + live * w * 4 + q_pos.numel() * 4
-                  + kvl.numel() * 4 + 2 * got_v.numel() * 4)
-        times[label] += (bound(bytes_, 3 * w * pairs / INT32_OP_PER_S),)
-        log(f"bacam_topk_stage1 {label} ({bh} x {qq.shape[1]} rows, "
-            f"{CONTIG_CACHE} keys): bit-exact ({int(valid.sum())} valid "
-            f"candidates), kernel {times[label][0]:.6g} ms, plain "
-            f"{times[label][1]:.6g} ms, bound {times[label][2]}")
-    ms, plain, bd = times["decode step"]
-    rows.append(dict(
-        name="bacam_topk_stage1", route="cuda", path="contiguous",
-        source="src/repro_torch/csrc/bacam_topk.cu",
-        replaces="src/repro/kernels/bacam_topk.py:154", max_abs_err=0.0,
-        ms=ms, plain_ms=plain, **bd, library_ms=None))
+                  + kvl.numel() * 4 + 2 * got[0].numel() * 4)
+        rows.append(dict(
+            name=name, route="cuda", path="contiguous",
+            source="src/repro_torch/csrc/bacam_topk.cu",
+            replaces="src/repro/kernels/bacam_topk.py:154", max_abs_err=0.0,
+            ms=ms, plain_ms=plain,
+            **bound(bytes_, 3 * w * pairs / INT32_OP_PER_S), library_ms=None))
+        log(f"bacam_topk_stage1 {label}: kernel {ms:.6g} ms"
+            f", plain {plain:.6g} ms, bound {rows[-1]['bound_ms']:.6g} ms "
+            f"by {rows[-1]['bound_by']} ({pairs} live (row, key) pairs)")
+    # the chunk's time against its stores: the first chunk (seven eighths
+    # of its (row, group) pairs masked, so nearly all stores) and two
+    # fill_() of the candidate tensors (the same 16.8 MB, one launch each)
+    _, _, qq, kk, q_pos, kvl, opts = cases[2]
+    first_ms = cuda_ms(lambda: btk.bacam_topk_stage1(
+        qq, kk, q_pos, kvl, d=d, causal=True, **opts), flush=flush)
+    vals, idx = (torch.empty((bh, CONTIG_CHUNK, 2 * CONTIG_CACHE // 16),
+                             dtype=torch.int32, device=dev) for _ in range(2))
+
+    def fills():
+        vals.fill_(0)
+        idx.fill_(0)
+
+    log(f"bacam_topk_stage1 (sq>1) against its stores: first prefill chunk "
+        f"{first_ms:.6g} ms, two fill_() of the candidate tensors "
+        f"({2 * vals.numel() * 4} bytes) {cuda_ms(fills, flush=flush):.6g}"
+        f" ms")
+    del k, k_ties, cases, vals, idx
 
     # --- bitslice_vmm at bits 4 and 8 on (128, 896, 64) x (128, 896, 64):
     # the kernel (one launch), its plain version, the f32 matmul yardstick
     # and its earlier design, the per-plane loop over bacam_mvm, for before
     # and after in one run (its bacam_mvm launches are not path launches)
     n = CONTIG_PROMPT
+    times = {}
     x = torch.where(torch.randn((bh, n, d), generator=gen, device=dev) > 0,
                     1.0, -1.0)
     for bits in (4, 8):
@@ -873,10 +957,12 @@ def contiguous_slice_phase():
             f"{plain}"
         assert at_prefill["bacam_mvm"] == (0 if chunk else n_layers), \
             at_prefill
-        assert at_prefill["bacam_topk_stage1"] == n_chunks * n_layers, \
-            at_prefill
-        assert launches["bacam_topk_stage1"] == \
-            (n_chunks + steps) * n_layers, launches
+        assert at_prefill["bacam_topk_stage1 (sq>1)"] == \
+            n_chunks * n_layers, at_prefill
+        assert at_prefill["bacam_topk_stage1"] == 0, at_prefill
+        assert launches["bacam_topk_stage1 (sq>1)"] == n_chunks * n_layers, \
+            launches
+        assert launches["bacam_topk_stage1"] == steps * n_layers, launches
         assert launches["bacam_mvm"] == at_prefill["bacam_mvm"], launches
         assert torch.isfinite(logits).all(), f"leg {leg}: non-finite logits"
         picks = torch.stack(picks)
@@ -911,15 +997,17 @@ def contiguous_slice_phase():
 
 
 def kernel_instance(mangled):
-    """``name<N>`` of a mangled ``..._kernel<N>`` (Itanium: a name is its
-    length, then its characters)."""
+    """``name<N, ...>`` of a mangled ``..._kernel<N, ...>`` (Itanium: a name
+    is its length, then its characters; int template arguments
+    ``Li<N>E``)."""
     for run in re.finditer(r"\d+", mangled):
         for i in range(run.start(), run.end()):
             n = int(mangled[i:run.end()])
             name = mangled[run.end():run.end() + n]
             if name.endswith("_kernel"):
-                inst = re.match(r"ILi(\d+)E", mangled[run.end() + n:])
-                return name + (f"<{inst.group(1)}>" if inst else "")
+                inst = re.match(r"I((?:Li\d+E)+)E", mangled[run.end() + n:])
+                args = re.findall(r"\d+", inst.group(1)) if inst else []
+                return name + (f"<{', '.join(args)}>" if args else "")
     return mangled
 
 
@@ -953,6 +1041,8 @@ def main():
 
     # 256 MiB, five times the L2, overwritten before each timed launch
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    log(f"launch floor: {launch_floor(flush):.6g} ms (a one-element zero_()"
+        f" under the kernels' timing: L2 flushed, CUDA events)")
     rows = kernel_phase(flush) + contiguous_kernel_phase(flush)
     del flush
     parity_phase()

@@ -353,7 +353,7 @@ class CamformerBackend(AttentionBackend):
                 qp.reshape(b * hkv, g * sq, w),
                 cache["k_packed"].reshape(b * hkv, skv, w), pos, kvl, d=d,
                 group=spec.group_size, stage1_k=spec.stage1_k, causal=True,
-                window=cfg.window)
+                window=cfg.window, sq=sq)
             top_v, sel = stable_topk(cand_v,
                                      min(spec.k_top, cand_v.shape[-1]))
             top_i = torch.gather(cand_i, -1, sel)

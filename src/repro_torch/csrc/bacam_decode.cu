@@ -9,105 +9,74 @@
 // kpos >= kv_len[b], kpos > q_pos[b] (and kpos <= q_pos[b] - window when a
 // window is set) to MASKED_SCORE, and keeps the top stage1_k (value,
 // logical index) pairs of each group of `group` keys, ties to the lowest
-// index.  Output order is page-major, group-major, top-k-minor.
+// index.  Output order is page-major, group-major, top-k-minor: since a
+// page tiles by the group, that is group-major over the logical keys.
 //
-// Design.  One block per (slot, kv head, a run of pages_per_block logical
-// pages), one thread per key.  A thread loads its key's W packed words
-// (8 bytes at d = 64) into registers once and scores all R rows with
-// __popc.  The `group` lanes of one key group (a half-warp at group 16)
-// pick the top stage1_k by shuffle reductions on (value, -index), so the
-// lowest index wins a tie.  The block reads page_table[b, j] itself (there
-// is no scalar prefetch on this card).  Pages at or past kv_len load
-// nothing and still write MASKED_SCORE, because the output covers every
-// logical page of the table.
-//
-// Bound.  At the serving shapes (8 slots, 16 kv heads, 64-key pages,
-// d = 64, one row) the live packed keys are about 0.5 MB per layer: well
-// under a microsecond of HBM time at 3.35 TB/s.  The kernel is bounded by
-// launch latency, so it is kept to one launch per layer with no
-// intermediate buffers.
+// Design.  The shared body of csrc/bacam_stage1.cuh (its header states the
+// design and the bound), over the page table: grid (key tiles, H * row
+// tiles, B), one block per tile of up to 32 groups of logical keys (R = G
+// GQA rows share one q_pos).  For each 16-byte chunk of the tile the
+// loader reads the page-table entry, clamps it into the pool and reads the
+// key words: the one dependent step, taken for all of a thread's chunks
+// at once.  Entries past kv_len point at the trash page and are loaded like
+// any other (no load waits on kv_len); their groups are written masked
+// without being scored.  16-byte loads need page * W to be a multiple of
+// four words (a chunk then never crosses a page); otherwise the loader
+// reads a word at a time.  At the serving shapes (8 slots, 16 kv heads,
+// one row, 16 pages of 64 keys) a block is 32 groups of 512 keys by teams
+// of four lanes: 256 blocks of 128 threads, one wave.
 
-#include <climits>
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "bacam_stage1.cuh"
 
 namespace {
 
-constexpr int kMaskedScore = -(1 << 30);
-constexpr int kMaxWords = 8;  // d <= 256
-constexpr int kKeysPerBlock = 256;
+namespace s1 = bacam_stage1;
 
-__device__ __forceinline__ bool better(int v1, int i1, int v2, int i2) {
-  return v1 > v2 || (v1 == v2 && i1 < i2);
-}
+// The logical key words of (b, h): words NP * page * W; word i lies in
+// logical page i / (page * W), at physical page table[that], clamped into
+// the pool.  16-byte loads when the pool is 16-byte aligned and page * W
+// is a multiple of four (a chunk then never crosses a page).  addr reads
+// the table entry, so the body calls it only for i < words: the entry it
+// reads then lies inside slot b's NP entries.
+template <int W>
+struct PagedKeys {
+  const uint32_t* pool;  // (P, H, page, W)
+  const int32_t* table;  // slot b's NP entries
+  int H, h, page, P;
+  int words;
+  bool vec;
+  __device__ __forceinline__ const uint32_t* addr(int i) const {
+    const int kk = i / W;
+    const int j = kk / page;
+    const int phys = min(max(__ldg(table + j), 0), P - 1);
+    return pool + ((static_cast<size_t>(phys) * H + h) * page +
+                   (kk - j * page)) * W + (i - kk * W);
+  }
+};
 
-__global__ void bacam_paged_topk_stage1_kernel(
-    const int32_t* __restrict__ q,           // (B, H, R, W)
-    const int32_t* __restrict__ kp,          // (P, H, page, W)
+template <int W, int KMAX, int RPL, int LPG>
+__global__ void __launch_bounds__(s1::kMaxThreads)
+bacam_paged_topk_stage1_kernel(
+    const uint32_t* __restrict__ q,          // (B, H, R, W)
+    const uint32_t* __restrict__ kp,         // (P, H, page, W)
     const int32_t* __restrict__ page_table,  // (B, NP)
     const int32_t* __restrict__ kv_len,      // (B,)
     const int32_t* __restrict__ q_pos,       // (B,)
-    int32_t* __restrict__ vals,              // (B, H, R, NP * ncp)
-    int32_t* __restrict__ idx,               // (B, H, R, NP * ncp)
-    int H, int R, int W, int P, int page, int NP, int d, int group,
-    int stage1_k, int pages_per_block, int has_window, int window) {
+    int32_t* __restrict__ vals,              // (B, H, R, ncand)
+    int32_t* __restrict__ idx,               // (B, H, R, ncand)
+    s1::Params p, int H, int P, int page, int NP) {
   const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int t = threadIdx.x;
-  const int j = blockIdx.x * pages_per_block + t / page;  // logical page
-  const int p = t % page;                                 // key in page
-  const bool active = t < pages_per_block * page && j < NP;
-  const int kvl = kv_len[b];
-  const int qpos = q_pos[b];
-  const int kpos = j * page + p;  // logical key index (unique per thread)
-  bool ok = active && kpos < kvl && kpos <= qpos;
-  if (has_window) ok = ok && kpos > qpos - window;
-
-  uint32_t kw[kMaxWords];
-  if (ok) {
-    int phys = page_table[b * NP + j];
-    phys = min(max(phys, 0), P - 1);
-    const int32_t* kr = kp + ((static_cast<size_t>(phys) * H + h) * page + p) * W;
-#pragma unroll
-    for (int w = 0; w < kMaxWords; ++w)
-      if (w < W) kw[w] = static_cast<uint32_t>(kr[w]);
-  }
-
-  const int ncp = stage1_k * (page / group);
-  const int ncand = NP * ncp;
-  const bool leader = (t % group) == 0;
-  const int key_group = p / group;
-  for (int r = 0; r < R; ++r) {
-    int score = kMaskedScore;
-    if (ok) {
-      const int32_t* qr = q + ((static_cast<size_t>(b) * H + h) * R + r) * W;
-      int mism = 0;
-#pragma unroll
-      for (int w = 0; w < kMaxWords; ++w)
-        if (w < W) mism += __popc(static_cast<uint32_t>(qr[w]) ^ kw[w]);
-      score = d - 2 * mism;
-    }
-    bool taken = false;
-    const size_t out_row = ((static_cast<size_t>(b) * H + h) * R + r) * ncand;
-    for (int s = 0; s < stage1_k; ++s) {
-      int bv = taken ? INT_MIN : score;
-      int bi = kpos;
-      for (int off = group / 2; off > 0; off >>= 1) {
-        const int ov = __shfl_xor_sync(0xffffffffu, bv, off, group);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off, group);
-        if (better(ov, oi, bv, bi)) {
-          bv = ov;
-          bi = oi;
-        }
-      }
-      if (bi == kpos) taken = true;  // the winner leaves the race
-      if (active && leader) {
-        const size_t o = out_row + j * ncp + key_group * stage1_k + s;
-        vals[o] = bv;
-        idx[o] = bi;
-      }
-    }
-  }
+  const int h = blockIdx.y / p.row_tiles;
+  const int row_tile = blockIdx.y - h * p.row_tiles;
+  const PagedKeys<W> keys{kp, page_table + static_cast<size_t>(b) * NP, H,
+                          h, page, P, NP * page * W,
+                          (reinterpret_cast<uintptr_t>(kp) & 15) == 0 &&
+                              ((page * W) & 3) == 0};
+  const size_t m = static_cast<size_t>(b) * H + h;  // the matrix
+  const size_t out = m * p.R * p.ngroups * p.stage1_k;
+  s1::stage1_block<W, KMAX, RPL, LPG>(keys, q + m * p.R * W, q_pos + b, 0,
+                                      kv_len + b, vals + out, idx + out, p,
+                                      blockIdx.x, row_tile);
 }
 
 }  // namespace
@@ -117,15 +86,22 @@ extern "C" int bacam_paged_topk_stage1(
     const void* q_pos, void* vals, void* idx, int B, int H, int R, int W,
     int P, int page, int NP, int d, int group, int stage1_k, int has_window,
     int window, void* stream) {
-  const int pages_per_block = page >= kKeysPerBlock ? 1 : kKeysPerBlock / page;
-  const int threads = ((pages_per_block * page + 31) / 32) * 32;
-  const dim3 grid((NP + pages_per_block - 1) / pages_per_block, H, B);
-  bacam_paged_topk_stage1_kernel<<<grid, threads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(q), static_cast<const int32_t*>(kp),
-      static_cast<const int32_t*>(page_table),
-      static_cast<const int32_t*>(kv_len), static_cast<const int32_t*>(q_pos),
-      static_cast<int32_t*>(vals), static_cast<int32_t*>(idx), H, R, W, P,
-      page, NP, d, group, stage1_k, pages_per_block, has_window, window);
-  return static_cast<int>(cudaGetLastError());
+  if (d != 32 * W || page % group)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int S = NP * page;
+  const s1::Plan pl = s1::plan(R, S, S / group, W, group, stage1_k, 1,
+                               has_window, window);
+  const dim3 grid(pl.key_tiles, H * pl.p.row_tiles, B);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return s1::dispatch(W, pl, [&](auto w, auto kmax, auto rpl, auto lpg) {
+    bacam_paged_topk_stage1_kernel<decltype(w)::value, decltype(kmax)::value,
+                                   decltype(rpl)::value, decltype(lpg)::value>
+        <<<grid, pl.threads, pl.smem, s>>>(
+            static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(kp),
+            static_cast<const int32_t*>(page_table),
+            static_cast<const int32_t*>(kv_len),
+            static_cast<const int32_t*>(q_pos), static_cast<int32_t*>(vals),
+            static_cast<int32_t*>(idx), pl.p, H, P, page, NP);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -2,7 +2,9 @@
 
 Replaces the TPU kernel ``kernels/bacam_decode.py::bacam_paged_topk_stage1``
 of the reference package (body ``kernels/bacam_topk.py::score_and_stage1``).
-The CUDA source is ``csrc/bacam_decode.cu``; its header states the design.
+The CUDA source is ``csrc/bacam_decode.cu`` over the device body it
+shares with the contiguous kernel, ``csrc/bacam_stage1.cuh``; their
+headers state the design.
 
 Bound on the card: at the serving shapes (8 slots, 16 kv heads, 64-key
 pages, one row per kv head) the live packed keys are about 0.5 MB per
@@ -54,8 +56,9 @@ def bacam_paged_topk_stage1(q_packed, kp_pages, page_table, kv_len, q_pos, *,
     build.check("page_table", page_table, dev, i32, (b, np_))
     build.check("kv_len", kv_len, dev, i32, (b,))
     build.check("q_pos", q_pos, dev, i32, (b,))
-    if words * 32 != d or words > 8:
-        raise ValueError(f"d={d} must be 32 * W with W <= 8, got W={words}")
+    if words * 32 != d or not 1 <= words <= 8:
+        raise ValueError(f"d={d} must be 32 * W with 1 <= W <= 8, got "
+                         f"W={words}")
     if group < 1 or group > 32 or group & (group - 1):
         raise ValueError(f"group={group} must be a power of two <= 32")
     if page % group or page > 1024:

@@ -2,17 +2,22 @@
 
 Replaces the TPU kernel ``kernels/bacam_topk.py::bacam_topk_stage1`` of
 the reference package (body ``score_and_stage1``).  The CUDA source is
-``csrc/bacam_topk.cu``; its header states the design.
+``csrc/bacam_topk.cu`` over the device body it shares with the paged
+kernel, ``csrc/bacam_stage1.cuh``; their headers state the design.
 
 Bound on the card: at a camformer-bert decode step (B * H_kv = 128, one
 row, 1024 keys, d = 64) the kernel reads about 1 MiB of packed keys and
 writes 128 KiB of candidates, a fraction of a microsecond at 3.35 TB/s,
-so it is bounded by launch latency.  Only the candidates reach device
-memory; the score matrix never does.
+so it is bounded by launch latency; at a 128-row prefill chunk the 16.8
+MB of candidates it writes bound it at about 5.3 us, and its popcounts
+at about 7 us.  Only the candidates reach device memory; the score
+matrix never does.
 
 A tensor on the CPU takes the plain version (``ref.bacam_topk_stage1_ref``
 over the keys padded to a group multiple); a CUDA tensor launches the
-kernel or raises.  ``launches`` counts kernel launches.
+kernel or raises.  ``launches`` counts kernel launches, and
+``prefill_launches`` the subset whose rows hold more than one query
+position (``sq > 1``: prefill chunks, not GQA decode rows).
 """
 
 from __future__ import annotations
@@ -22,9 +27,11 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import bacam_topk_stage1_ref
 
-__all__ = ["bacam_topk_stage1", "bacam_topk_stage1_plain", "launches"]
+__all__ = ["bacam_topk_stage1", "bacam_topk_stage1_plain", "launches",
+           "prefill_launches"]
 
 launches = 0  # kernel launches (plain-version calls are not counted)
+prefill_launches = 0  # the sq > 1 subset of ``launches``
 
 
 def bacam_topk_stage1_plain(q_packed, k_packed, q_pos, kv_len, *, d: int,
@@ -44,12 +51,14 @@ def bacam_topk_stage1_plain(q_packed, k_packed, q_pos, kv_len, *, d: int,
 
 def bacam_topk_stage1(q_packed, k_packed, q_pos, kv_len, *, d: int,
                       group: int = 16, stage1_k: int = 2, causal: bool = True,
-                      window: int | None = None):
+                      window: int | None = None, sq: int | None = None):
     """Fused binary scores + stage-1 top-k over a contiguous packed cache.
 
     q_packed: (B, R, W) int32; k_packed: (B, Skv, W) int32 (any Skv);
     q_pos: (B, R) int32 query positions; kv_len: (B,) or (B, 1) int32
-    valid keys.  Returns (cand_vals, cand_idx), both
+    valid keys.  sq: the query positions among the R rows, when they fold
+    G GQA rows as R = G * sq (default R); only ``prefill_launches`` reads
+    it.  Returns (cand_vals, cand_idx), both
     (B, R, stage1_k * ceil(Skv / group)) int32, group-major and
     top-k-minor; masked candidates hold MASKED_SCORE (their indices are
     don't-care and may reach past Skv in the last group).
@@ -58,7 +67,7 @@ def bacam_topk_stage1(q_packed, k_packed, q_pos, kv_len, *, d: int,
         return bacam_topk_stage1_plain(
             q_packed, k_packed, q_pos, kv_len, d=d, group=group,
             stage1_k=stage1_k, causal=causal, window=window)
-    global launches
+    global launches, prefill_launches
     b, r, words = q_packed.shape
     skv = k_packed.shape[1]
     dev = q_packed.device
@@ -92,4 +101,5 @@ def bacam_topk_stage1(q_packed, k_packed, q_pos, kv_len, *, d: int,
         raise RuntimeError(f"bacam_topk_stage1 launch failed: CUDA error "
                            f"{err}")
     launches += 1
+    prefill_launches += (r if sq is None else sq) > 1
     return vals, idx

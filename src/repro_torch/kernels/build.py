@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` for Hopper
 (``sm_90a``) into ``build/lib<name>-<hash>.so`` at the repository root
-and loaded with ``ctypes``; the hash covers the source and the flags, so
-an edited source never loads a stale library.  Nothing is built when a
+and loaded with ``ctypes``; the hash covers the source, every shared header
+``csrc/*.cuh`` and the flags, so an edited source or header never loads
+a stale library.  Nothing is built when a
 module is imported: the kernel wrappers call :func:`load` at their first
 launch, and :func:`build` compiles several sources at once, one ``nvcc``
 process each.  :func:`entry` binds one C function of a library, and
@@ -50,8 +51,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:12]}.so"
 
 

@@ -68,13 +68,16 @@ def bacam_attention_scores_topk(qb, kb, q_pos, kv_len, *, group: int = 16,
 def bacam_attention_scores_topk_packed(qp, kp, q_pos, kv_len, *, d: int,
                                        group: int = 16, stage1_k: int = 2,
                                        causal: bool = True,
-                                       window: int | None = None):
+                                       window: int | None = None,
+                                       sq: int | None = None):
     """The association stage on packed operands (the camformer cache
     stores keys packed), through kernels/bacam_topk.py.
 
     qp: (B, R, W) int32; kp: (B, Skv, W) int32; q_pos: (B, R); kv_len:
-    (B,) or (B, 1).  Returns (cand_vals float32 with NEG_INF at masked
-    candidates, cand_idx int32 clamped to Skv - 1), both
+    (B,) or (B, 1); sq: the query positions among the R rows (R = G * sq
+    with GQA rows folded; the kernel wrapper's launch counts read it).
+    Returns (cand_vals float32 with NEG_INF at masked candidates,
+    cand_idx int32 clamped to Skv - 1), both
     (B, R, stage1_k * ceil(Skv / group)).
     """
     b = qp.shape[0]
@@ -82,7 +85,7 @@ def bacam_attention_scores_topk_packed(qp, kp, q_pos, kv_len, *, d: int,
     vals, idx = _btk.bacam_topk_stage1(
         qp.contiguous(), kp.contiguous(),
         q_pos.to(torch.int32).contiguous(), _i32(kv_len, b), d=d,
-        group=group, stage1_k=stage1_k, causal=causal, window=window)
+        group=group, stage1_k=stage1_k, causal=causal, window=window, sq=sq)
     return _masked_to_neg_inf(vals), torch.clamp(idx, max=skv - 1)
 
 

@@ -30,6 +30,7 @@ from repro.core.attention import dense_reference as j_dense_reference
 from repro.core.attention import make_mask as j_make_mask
 from repro.core.bacam import pack_bits as j_pack
 from repro.kernels.bacam_mvm import bacam_mvm as j_bacam_mvm
+from repro.kernels.bacam_topk import bacam_topk_stage1 as j_bacam_topk
 from repro.kernels import ops as j_ops
 from repro.kernels import ref as j_ref
 
@@ -151,6 +152,48 @@ def test_bacam_topk_ragged_keys_match_reference(skv, rows):
     valid = np.asarray(jv) > -1e8
     np.testing.assert_array_equal(ti.numpy()[valid], np.asarray(ji)[valid])
     assert int(ti.max()) <= skv - 1
+
+
+@pytest.mark.parametrize("case", ["ties", "masked groups"])
+def test_bacam_topk_stage1_ties_and_masked_groups(case):
+    """All-tie groups (every key of a group carries one key word) and
+    fully masked groups (a causal chunk at positions 0..15 over 64 keys at
+    kv_len 16, and an inert row set at kv_len 0): the plain version against
+    the jnp oracle on values and every index, fully masked groups at
+    base + s, and against the Pallas kernel in interpret mode on values and
+    valid indices (the Pallas body writes base + 0 for every candidate of a
+    fully masked group, ROADMAP faults)."""
+    rng = np.random.default_rng(len(case))
+    b, r, skv, w, group, s1 = 2, 16, 64, 2, 16, 2
+    q = rng.integers(-2**31, 2**31, (b, r, w)).astype(np.int32)
+    k = rng.integers(-2**31, 2**31, (b, skv, w)).astype(np.int32)
+    if case == "ties":
+        k = np.repeat(k[:, ::group], group, axis=1)
+        kvlen = np.array([skv, skv - 20], np.int32)
+        qpos = np.tile(np.arange(r, dtype=np.int32) * 4, (b, 1))
+    else:
+        kvlen = np.array([r, 0], np.int32)
+        qpos = np.tile(np.arange(r, dtype=np.int32), (b, 1))
+    tv, ti = t_btk.bacam_topk_stage1(
+        *(torch.from_numpy(x) for x in (q, k, qpos, kvlen)), d=32 * w,
+        group=group, stage1_k=s1)
+    tv, ti = tv.numpy(), ti.numpy()
+    jargs = (_u32(q), _u32(k), jnp.asarray(qpos))
+    ov, oi = j_ref.bacam_topk_stage1_ref(
+        *jargs[:2], 32 * w, jargs[2], group_size=group, stage1_k=s1,
+        kv_len=jnp.asarray(kvlen))
+    np.testing.assert_array_equal(tv, np.asarray(ov))
+    np.testing.assert_array_equal(ti, np.asarray(oi))
+    dead = tv.reshape(b, r, -1, s1)[..., 0] == MASKED
+    base = (np.arange(skv // group)[:, None] * group + np.arange(s1))
+    assert dead.any() and (~dead).any()
+    np.testing.assert_array_equal(ti.reshape(b, r, -1, s1)[dead],
+                                  np.broadcast_to(base, dead.shape + (s1,))[
+                                      dead])
+    pv, pi = j_bacam_topk(*jargs, jnp.asarray(kvlen)[:, None], d=32 * w,
+                          group=group, stage1_k=s1, block_q=r, block_k=skv,
+                          interpret=True)
+    _assert_candidates(tv, ti, np.asarray(pv), np.asarray(pi))
 
 
 # --- flash_attention -------------------------------------------------------

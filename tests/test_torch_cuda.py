@@ -47,17 +47,49 @@ def _on(dev, *xs):
     return [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in xs]
 
 
-@pytest.mark.parametrize("r,w,page,group,s1,window", [
-    (1, 2, 64, 16, 2, None), (3, 2, 16, 4, 2, None), (4, 4, 32, 8, 3, 9),
-    (2, 1, 16, 16, 1, 5)])
-def test_bacam_kernel_matches_plain(cuda, r, w, page, group, s1, window):
+def _assert_candidates(got_v, got_i, want_v, want_i, group, s1):
+    """Values everywhere, indices everywhere (valid candidates, and the
+    lowest masked indices the stable top-k picks), and base + s on every
+    fully masked group, whose first candidate is masked."""
+    assert torch.equal(got_v, want_v)
+    valid = want_v > MASKED_SCORE // 2
+    assert valid.any()
+    assert torch.equal(got_i[valid], want_i[valid])
+    assert torch.equal(got_i, want_i)
+    v = got_v.reshape(*got_v.shape[:-1], -1, s1)
+    i = got_i.reshape(v.shape)
+    dead = v[..., 0] == MASKED_SCORE
+    base = (torch.arange(v.shape[-2], device=v.device, dtype=torch.int32)
+            * group)[:, None] + torch.arange(s1, device=v.device,
+                                             dtype=torch.int32)
+    assert torch.equal(i[dead], base.expand_as(i)[dead])
+
+
+@pytest.mark.parametrize("r,w,page,group,s1,window,ties", [
+    (1, 2, 64, 16, 2, None, False), (3, 2, 16, 4, 2, None, False),
+    (4, 4, 32, 8, 3, 9, False), (2, 1, 16, 16, 1, 5, False),
+    (8, 2, 64, 16, 2, 100, False),  # GQA rows (R = G = 8), window
+    (1, 2, 128, 16, 2, None, False),  # 128-key pages, group 16
+    (8, 2, 64, 16, 2, None, True),  # one key word per group: all ties
+    (2, 2, 64, 32, 32, None, False),  # stage1_k = group = 32
+    # the shapes' other instances: a thread per group at group 2 and 1,
+    # and 4 rows a thread past 8 rows (at W = 5 too)
+    (2, 2, 16, 2, 2, None, False), (3, 1, 16, 1, 1, 5, False),
+    (16, 2, 64, 16, 2, None, False), (12, 5, 32, 8, 2, 9, False)])
+def test_bacam_kernel_matches_plain(cuda, r, w, page, group, s1, window,
+                                    ties):
+    """Ragged and inert slots, table entries past kv_len on the trash
+    page 0 and one entry past the pool (clamped)."""
     rng = np.random.default_rng(page + r)
     b, hkv, np_ = 5, 3, 6
     kv_len = np.array([np_ * page, 0, page + 3, 1, 2 * page], np.int32)
     q = rng.integers(-2**31, 2**31, (b, hkv, r, w)).astype(np.int32)
     kp = rng.integers(-2**31, 2**31,
                       (1 + b * np_, hkv, page, w)).astype(np.int32)
+    if ties:  # every key of a group carries its group's first key's words
+        kp = np.repeat(kp[:, :, ::group], group, axis=2)
     table = _table(rng, b, np_, kv_len, page)
+    table[4, -1] = 10**6  # past kv_len and past the pool
     q_pos = np.maximum(kv_len - 1, 0).astype(np.int32)
     args = _on(cuda, q, kp, table, kv_len, q_pos)
     before = bdec.launches
@@ -68,10 +100,7 @@ def test_bacam_kernel_matches_plain(cuda, r, w, page, group, s1, window):
         window=window)
     torch.cuda.synchronize()
     assert bdec.launches == before + 1
-    assert torch.equal(got_v, want_v)
-    valid = want_v > MASKED_SCORE // 2
-    assert valid.any()
-    assert torch.equal(got_i[valid], want_i[valid])
+    _assert_candidates(got_v, got_i, want_v, want_i, group, s1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -181,31 +210,96 @@ def test_mvm_kernel_matches_plain(cuda, b, r, skv, w):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("r,skv,w,group,s1,causal,window", [
-    (1, 1024, 2, 16, 2, True, None), (24, 96, 2, 8, 1, True, 8),
-    (5, 100, 4, 4, 4, False, None), (130, 300, 2, 16, 2, True, None),
-    (3, 37, 8, 32, 3, True, 5)])
+@pytest.mark.parametrize("r,skv,w,group,s1,causal,window,lens,ties", [
+    (1, 1024, 2, 16, 2, True, None, None, False),
+    (24, 96, 2, 8, 1, True, 8, None, False),
+    (5, 100, 4, 4, 4, False, None, None, False),
+    (130, 300, 2, 16, 2, True, None, None, False),
+    (3, 37, 8, 32, 3, True, 5, None, False),
+    # the first 128-row chunk of a prefill: q_pos 0..127, kv_len 128, so
+    # seven eighths of the key tiles are masked for every row
+    (128, 1024, 2, 16, 2, True, None, (128, 128, 128, 0), False),
+    (24, 96, 2, 16, 2, True, None, None, True),  # all ties in a group
+    (9, 200, 2, 32, 32, True, None, None, False),  # stage1_k = group = 32
+    (7, 100, 3, 32, 32, False, 20, None, True),
+    # a thread per group at group 2 and 1 (at most 8 rows)
+    (6, 50, 2, 2, 2, True, None, None, False),
+    (3, 40, 1, 1, 1, True, 7, None, False)])
 def test_topk_kernel_matches_plain(cuda, r, skv, w, group, s1, causal,
-                                   window):
+                                   window, lens, ties):
     rng = np.random.default_rng(r * 7 + skv)
     b = 4
     q = rng.integers(-2**31, 2**31, (b, r, w)).astype(np.int32)
     k = rng.integers(-2**31, 2**31, (b, skv, w)).astype(np.int32)
-    kv_len = np.array([skv, 0, skv // 2 + 1, 1], np.int32)
-    q_pos = (np.arange(r, dtype=np.int32)[None] + kv_len[:, None]
-             - r).clip(0).astype(np.int32)
+    if ties:  # every key of a group carries its group's first key's words
+        k = np.repeat(k[:, ::group], group, axis=1)[:, :skv]
+    if lens is None:
+        kv_len = np.array([skv, 0, skv // 2 + 1, 1], np.int32)
+        q_pos = (np.arange(r, dtype=np.int32)[None] + kv_len[:, None]
+                 - r).clip(0).astype(np.int32)
+    else:  # a chunk at positions 0..r-1
+        kv_len = np.array(lens, np.int32)
+        q_pos = np.tile(np.arange(r, dtype=np.int32), (b, 1))
     args = _on(cuda, q, k, q_pos, kv_len)
     kw = dict(d=32 * w, group=group, stage1_k=s1, causal=causal,
               window=window)
-    before = btk.launches
+    before, chunks = btk.launches, btk.prefill_launches
     got_v, got_i = btk.bacam_topk_stage1(*args, **kw)
     want_v, want_i = btk.bacam_topk_stage1_plain(*args, **kw)
     torch.cuda.synchronize()
     assert btk.launches == before + 1
-    assert torch.equal(got_v, want_v)
-    valid = want_v > MASKED_SCORE // 2
-    assert valid.any()
-    assert torch.equal(got_i[valid], want_i[valid])
+    assert btk.prefill_launches == chunks + (r > 1)
+    _assert_candidates(got_v, got_i, want_v, want_i, group, s1)
+
+
+CANARY = 0x5A5A5A5A
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("r,group,s1", [
+    (1, 16, 2), (16, 16, 2), (3, 2, 2), (2, 8, 3)])
+def test_stage1_writes_stay_in_bounds(cuda, paged, r, group, s1):
+    """Each variant of the two stage-1 entries (4 lanes a group, 4 rows a
+    thread, a thread per group, the generic stage1_k > 2 path) writes its
+    candidates and no word around them: the C entry is called with its
+    outputs placed between canary words of one buffer."""
+    from repro_torch.kernels import build
+
+    rng = np.random.default_rng(r * 31 + group)
+    b, h, w, page, np_ = 3, 2, 2, 32, 4
+    kv_len = np.array([np_ * page, 5, 0], np.int32)
+    q = rng.integers(-2**31, 2**31, (b, h, r, w)).astype(np.int32)
+    q_pos = np.maximum(kv_len - 1, 0).astype(np.int32)
+    kw = dict(d=32 * w, group=group, stage1_k=s1)
+    if paged:
+        kp = rng.integers(-2**31, 2**31,
+                          (1 + b * np_, h, page, w)).astype(np.int32)
+        args = _on(cuda, q, kp, _table(rng, b, np_, kv_len, page), kv_len,
+                   q_pos)
+        want = bdec.bacam_paged_topk_stage1(*args, **kw)
+        fn = build.entry("bacam_decode", "bacam_paged_topk_stage1", 7, 12)
+        ints = (b, h, r, w, kp.shape[0], page, np_, 32 * w, group, s1, 0, 0)
+    else:
+        rows = np.repeat(q_pos, h)[:, None] + np.arange(r) - (r - 1)
+        args = _on(cuda, q.reshape(b * h, r, w),
+                   rng.integers(-2**31, 2**31,
+                                (b * h, np_ * page, w)).astype(np.int32),
+                   rows.clip(0).astype(np.int32), np.repeat(kv_len, h))
+        want = btk.bacam_topk_stage1(*args, **kw)
+        fn = build.entry("bacam_topk", "bacam_topk_stage1", 6, 10)
+        ints = (b * h, r, np_ * page, w, 32 * w, group, s1, 1, 0, 0)
+    n, pad = want[0].numel(), 1024
+    buf = torch.full((2, pad + n + pad), CANARY, dtype=torch.int32,
+                     device=cuda)
+    vals, idx = buf[0, pad:pad + n], buf[1, pad:pad + n]
+    err = fn(*(t.data_ptr() for t in args), vals.data_ptr(), idx.data_ptr(),
+             *ints, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert (buf[:, :pad] == CANARY).all()
+    assert (buf[:, pad + n:] == CANARY).all()
+    assert torch.equal(vals, want[0].reshape(-1))
+    assert torch.equal(idx, want[1].reshape(-1))
 
 
 @pytest.mark.parametrize("bits,b,r,n,d", [
@@ -273,7 +367,8 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, b, sq, skv, d,
 def test_contiguous_path_launches_kernels_never_plain(cuda, monkeypatch):
     """use_kernel=True on CUDA tensors: whole prefill launches the BA-CAM
     matrix kernel once per layer, chunks and decode steps the top-k kernel
-    once per layer, and no plain version runs."""
+    once per layer (``prefill_launches`` counts the chunks alone, also
+    with GQA rows folded), and no plain version runs."""
     from repro_torch.configs import smoke_config
     from repro_torch.models import (init_params, init_pools, lm_cache_specs,
                                     lm_decode, lm_prefill)
@@ -283,17 +378,19 @@ def test_contiguous_path_launches_kernels_never_plain(cuda, monkeypatch):
 
     monkeypatch.setattr(bmvm, "bacam_scores_ref", plain)
     monkeypatch.setattr(btk, "bacam_topk_stage1_plain", plain)
-    for chunk in (0, 4):
+    for chunk, n_kv in ((0, 4), (4, 4), (4, 2)):  # 2: GQA rows, G = 2
         cfg = smoke_config("camformer-bert", use_kernel=True,
-                           prefill_chunk=chunk)
+                           prefill_chunk=chunk, n_kv_heads=n_kv)
         params = init_params(cfg, device=cuda, seed=0)
         caches = init_pools(lm_cache_specs(cfg, 2, 16), cuda)
         tokens = torch.randint(0, cfg.vocab, (2, 8), device=cuda)
         mvm0, topk0 = bmvm.launches, btk.launches
+        chunks0 = btk.prefill_launches
         logits, caches = lm_prefill(params, {"tokens": tokens}, caches, cfg)
         n = cfg.n_layers
         assert bmvm.launches - mvm0 == (0 if chunk else n)
         assert btk.launches - topk0 == (2 * n if chunk else 0)
+        assert btk.prefill_launches - chunks0 == (2 * n if chunk else 0)
         pos = torch.full((2,), 8, dtype=torch.int32, device=cuda)
         for _ in range(3):
             logits, caches = lm_decode(params, logits.argmax(-1), pos,
@@ -301,4 +398,6 @@ def test_contiguous_path_launches_kernels_never_plain(cuda, monkeypatch):
             pos = pos + 1
         torch.cuda.synchronize()
         assert btk.launches - topk0 == (2 * n if chunk else 0) + 3 * n
+        # decode rows hold one position each, also with GQA rows folded
+        assert btk.prefill_launches - chunks0 == (2 * n if chunk else 0)
         assert torch.isfinite(logits).all()

@@ -88,6 +88,66 @@ def test_bacam_plain_matches_reference_and_pallas(group, s1, window):
     np.testing.assert_array_equal(ti.numpy()[valid], np.asarray(pi)[valid])
 
 
+@pytest.mark.parametrize("case", ["ties", "masked groups"])
+def test_bacam_plain_ties_and_masked_groups(case):
+    """All-tie groups (every key of a group carries one key word) and fully
+    masked groups (slots at kv_len 0 and 1, a window, GQA R = 4): the
+    plain version against the jnp oracle on values and every index, fully
+    masked groups at base + s, and against the Pallas kernel in interpret
+    mode on values and valid indices (the Pallas body writes base + 0 for
+    every candidate of a fully masked group, ROADMAP faults)."""
+    q, kp, table, kv_len, q_pos = _bacam_inputs(len(case), r=4)
+    group, s1, window = 8, 2, (None if case == "ties" else 6)
+    if case == "ties":
+        kp = np.repeat(kp[:, :, ::group], group, axis=2)
+    d = 32 * q.shape[-1]
+    tv, ti = t_bdec.bacam_paged_topk_stage1(
+        *_t(q, kp, table, kv_len, q_pos), d=d, group=group, stage1_k=s1,
+        window=window)
+    tv, ti = tv.numpy(), ti.numpy()
+    jargs = (_u32(q), _u32(kp), jnp.asarray(table), jnp.asarray(kv_len))
+    jv, ji = j_ref.bacam_paged_topk_ref(
+        *jargs, d, q_pos=jnp.asarray(q_pos), group_size=group, stage1_k=s1,
+        window=window)
+    np.testing.assert_array_equal(tv, np.asarray(jv))
+    np.testing.assert_array_equal(ti, np.asarray(ji))
+    v = tv.reshape(*tv.shape[:-1], -1, s1)
+    dead = v[..., 0] == MASKED
+    base = np.arange(v.shape[-2])[:, None] * group + np.arange(s1)
+    assert dead.any() and (~dead).any()
+    np.testing.assert_array_equal(
+        ti.reshape(v.shape)[dead], np.broadcast_to(base, v.shape)[dead])
+    pv, pi = j_bdec.bacam_paged_topk_stage1(
+        *jargs, jnp.asarray(q_pos), d=d, group=group, stage1_k=s1,
+        window=window, interpret=True)
+    np.testing.assert_array_equal(tv, np.asarray(pv))
+    valid = tv > MASKED // 2
+    np.testing.assert_array_equal(ti[valid], np.asarray(pi)[valid])
+
+
+def test_build_path_covers_shared_headers(tmp_path, monkeypatch):
+    """A library's path hashes its source, every csrc/*.cuh and the flags:
+    an edited shared header gives both stage-1 sources a new library, an
+    edited unrelated source leaves theirs alone."""
+    from repro_torch.kernels import build
+
+    for src in list(build.CSRC.glob("*.cu")) + list(build.CSRC.glob("*.cuh")):
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    names = ("bacam_topk", "bacam_decode", "bacam_mvm")
+    before = {n: build._lib_path(n) for n in names}
+    header = tmp_path / "bacam_stage1.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    after = {n: build._lib_path(n) for n in names}
+    assert after["bacam_topk"] != before["bacam_topk"]
+    assert after["bacam_decode"] != before["bacam_decode"]
+    mvm = tmp_path / "bacam_mvm.cu"
+    mvm.write_text(mvm.read_text() + "// edited\n")
+    assert build._lib_path("bacam_topk") == after["bacam_topk"]
+    assert build._lib_path("bacam_mvm") != after["bacam_mvm"]
+    assert all(p.parent == build.BUILD_DIR for p in after.values())
+
+
 def test_bacam_ops_wrapper_matches_reference():
     """NEG_INF conversion of masked candidates and the index clip."""
     q, kp, table, kv_len, q_pos = _bacam_inputs(7)
