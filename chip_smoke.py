@@ -1,6 +1,7 @@
 """Run the PyTorch/CUDA port's serving path once on one NVIDIA card.
 
     python3 chip_smoke.py            # every phase, exits 0 only if all pass
+    python3 chip_smoke.py --stage1-bounds   # the stage-1 fault check only
 
 Phases, in order (each raises on failure; nothing is caught):
 
@@ -18,15 +19,25 @@ Phases, in order (each raises on failure; nothing is caught):
      the split-KV paged flash decode with 1 and 2 pages a split, and the
      stage-1 prefill chunk beside two fill_() of its candidate tensors;
      the stage-1 checks cover every index, fully masked groups (base + s),
-     all-tie groups, stage1_k = group = 32 and GQA rows;
+     all-tie groups, stage1_k = group = 32 and GQA rows; the paged flash
+     kernel is also checked and timed in its binary mode (the drafter's
+     decode shape) and at a verify chunk of ``VERIFY_M`` rows;
   4. parity: small-width models on the card (kernel path) against the
      same models on the CPU (plain path): the paged forward, and the
-     contiguous ``lm_prefill`` + 8 ``lm_decode`` steps;
+     contiguous ``lm_prefill`` + 8 ``lm_decode`` steps; then, at the f32
+     smoke width, keyed draws on the card against the CPU's, and
+     speculative streams (sync and overlap) against plain decode at
+     temperature 0.9;
   5. paged slice: ``camformer-bert`` at full width in bf16 with seeded
      random weights, served by ``ServeEngine`` (8 slots, 1024 tokens,
-     overlap mode) for 8 greedy requests, once on ``camformer`` and once
-     on ``dense``, checking finish reasons, tick errors, one readback per
-     tick and that each kernel of the path was launched;
+     overlap mode) for 8 greedy requests on ``camformer``, ``dense``,
+     ``binary`` and ``hybrid``, checking finish reasons, tick errors, one
+     readback per tick and that each kernel of the path was launched;
+     then speculation (``spec_k = SPEC_K``, ``binary`` drafter) on
+     ``dense`` and ``camformer`` at temperature 0.9, with exact launch
+     counts, beside plain decode of the same requests (the share of equal
+     tokens is printed, not asserted: at bf16 verify and sequential
+     decode sum in different orders);
   6. contiguous slice: the same model with ``use_kernel`` through
      ``make_prefill_step`` / ``make_serve_step``, 8 prompts of 896 tokens
      in a 1024-token cache: (a) whole-prompt prefill and 127 greedy
@@ -36,8 +47,9 @@ Phases, in order (each raises on failure; nothing is caught):
 
 The line before the last is the ``kernels`` JSON object (one row per
 kernel and shape: the paged flash and contiguous stage-1 kernels have a
-second ``(sq>1)`` row for their prefill chunks; ``path`` names the run
-that launches it: ``paged``, ``contiguous`` or ``none``); the last line
+second ``(sq>1)`` row for their prefill chunks, the paged flash kernel
+also a ``(binary)`` and a verify row; ``path`` names the runs that
+launch it); the last line
 is ``{"ok": true, "device":
 {...}}``.  Without a CUDA card, or without the rest of the repository
 next to this file, it exits non-zero and prints no result.
@@ -191,6 +203,8 @@ def reset_launches():
     for mod in kernel_modules():
         mod.launches = 0
     paged_flash_decode.prefill_launches = 0
+    paged_flash_decode.binary_launches = 0
+    paged_flash_decode.sq_launches.clear()
     bacam_topk.prefill_launches = 0
 
 
@@ -201,9 +215,13 @@ def read_launches():
                                      paged_flash_decode)
 
     pfd = paged_flash_decode
+    verify = pfd.sq_launches[VERIFY_M]
     return {"bacam_paged_topk_stage1": bacam_decode.launches,
-            "paged_flash_decode": pfd.launches - pfd.prefill_launches,
-            "paged_flash_decode (sq>1)": pfd.prefill_launches,
+            "paged_flash_decode": pfd.launches - pfd.prefill_launches
+            - pfd.binary_launches,
+            "paged_flash_decode (binary)": pfd.binary_launches,
+            "paged_flash_decode (sq>1)": pfd.prefill_launches - verify,
+            f"paged_flash_decode (sq>1, verify m={VERIFY_M})": verify,
             "bacam_topk_stage1": bacam_topk.launches
             - bacam_topk.prefill_launches,
             "bacam_topk_stage1 (sq>1)": bacam_topk.prefill_launches,
@@ -244,6 +262,8 @@ def plain_calls_on_card():
 # chunk of Sq = 384 rows at q_pos 0, and its decode ticks at lens + t
 SLICE_LENS = [64, 96, 128, 192, 256, 320, 352, 384]
 MID_DECODE = 16  # decode step whose kv_len the decode kernels are timed at
+SPEC_K = 3  # the speculation phase's drafts per tick
+VERIFY_M = SPEC_K + 1  # a verify chunk's rows per slot (G = 1)
 
 
 def kernel_phase(flush):
@@ -321,41 +341,59 @@ def kernel_phase(flush):
     offsets = torch.tensor([0, 256, 384, 0, 128, 0, 640, 0],
                            dtype=torch.int32)
     live = torch.tensor([1, 1, 1, 1, 1, 0, 1, 0], dtype=torch.int32)
+    # The binary row is the speculation phase's drafter step (and binary
+    # serving): sign(q) rows times the score scale and a per-row
+    # temperature, keys binarized in the kernel.  The verify row is a
+    # dense target's verify chunk of VERIFY_M rows a slot at mid-decode.
+    verify_len = decode_len + VERIFY_M
     flash_cases = [
-        (None, 1, ragged, torch.clamp(ragged - 1, min=0)),
-        (None, 128, (offsets + 128) * live, offsets),
-        ("paged_flash_decode", 1, decode_len, decode_len - 1),
-        ("paged_flash_decode (sq>1)", 384, lens, torch.zeros_like(lens)),
+        (None, 1, ragged, torch.clamp(ragged - 1, min=0), False),
+        (None, 128, (offsets + 128) * live, offsets, False),
+        (None, VERIFY_M, ragged, torch.clamp(ragged - VERIFY_M, min=0),
+         True),
+        ("paged_flash_decode", 1, decode_len, decode_len - 1, False),
+        ("paged_flash_decode (binary)", 1, decode_len, decode_len - 1, True),
+        ("paged_flash_decode (sq>1)", 384, lens, torch.zeros_like(lens),
+         False),
+        (f"paged_flash_decode (sq>1, verify m={VERIFY_M})", VERIFY_M,
+         verify_len, verify_len - VERIFY_M, False),
     ]
-    for name, sq, kv_len, q_pos in flash_cases:
+    for name, sq, kv_len, q_pos, binary in flash_cases:
         kpool, table = ragged_pool(gen, b, hkv, page, np_, kv_len,
                                    torch.bfloat16, d)
         vpool, _ = ragged_pool(gen, b, hkv, page, np_, kv_len,
                                torch.bfloat16, d)
         qr = torch.randn((b, hkv, sq, d), generator=gen) * d**-0.5
+        if binary:  # sign(q) / sqrt(d) times a temperature per row
+            temp = 0.5 + torch.rand((b, hkv, sq, 1), generator=gen)
+            qr = torch.where(qr > 0, 1.0, -1.0) * d**-0.5 * temp
         a = [t.to(dev).contiguous()
              for t in (qr, kpool, vpool, table, kv_len, q_pos)]
-        got = pfd.paged_flash_decode(*a, sq=sq)
-        want = pfd.paged_flash_decode_ref(*a, sq=sq)
+        kw = dict(sq=sq, binary=binary)
+        got = pfd.paged_flash_decode(*a, **kw)
+        want = pfd.paged_flash_decode_ref(*a, **kw)
         err, ok = close(got, want, 1e-5)
-        label = f"paged_flash_decode sq={sq} kv_len {kv_len.tolist()}"
+        label = (f"paged_flash_decode sq={sq}{' binary' if binary else ''} "
+                 f"kv_len {kv_len.tolist()}")
         assert ok, f"{label} bf16 pools: max abs err {err}"
         inert = (kv_len == 0).to(dev)
         assert torch.all(got[inert] == 0), f"{label}: inert rows not zero"
         log(f"{label} bf16 pools: max abs err {err:.3g} (tol 1e-5 rel+abs)")
         if name is None:
             continue
-        kern = lambda: pfd.paged_flash_decode(*a, sq=sq)
-        plain = lambda: pfd.paged_flash_decode_ref(*a, sq=sq)
-        library = library_attention(a, sq)
+        kern = lambda: pfd.paged_flash_decode(*a, **kw)
+        plain = lambda: pfd.paged_flash_decode_ref(*a, **kw)
+        library = library_attention(a, sq, binary)
         keys = sum(int(n) for n in kv_len)
         bytes_ = (qr.numel() * 4 + 2 * keys * hkv * d * 2
                   + table.numel() * 4 + 2 * b * 4 + got.numel() * 4)
         # QK^T and PV, 2 FLOPs per multiply-add, over causal (row, key)
         flops = 2 * 2 * causal_keys(kv_len, q_pos, sq) * hkv * d
         design, _ = pfd.plan(b, hkv, sq, d, d, page, np_, sq, True)
-        if pfd.DESIGNS[design] == "split-KV":  # f32 FMA on the CUDA cores
+        if pfd.DESIGNS[design] != "chunk tiles":  # f32 FMA, CUDA cores
             op_s = flops / F32_FLOP_PER_S
+            log(f"{name}: design {pfd.DESIGNS[design]}")
+        if name == "paged_flash_decode":
             for pages in (1, 2):  # pages per split, 1 (the wrapper's) vs 2
                 run = lambda: pfd.launch(*a, sq=sq, split_pages=pages)
                 err_sp, ok = close(run(), want, 1e-5)
@@ -365,8 +403,9 @@ def kernel_phase(flush):
                     f"{cuda_ms(run, flush=flush):.6g} ms")
             log(f"{name}: timed below with 1 page a split, "
                 f"{np_} splits of grid")
-        else:  # QK^T in f32 FMA, PV in three bf16 parts on the tensor
-            # cores: separate units, so the larger of the two times
+        elif pfd.DESIGNS[design] == "chunk tiles":
+            # QK^T in f32 FMA, PV in three bf16 parts on the tensor cores:
+            # separate units, so the larger of the two times
             op_s = max(flops / 2 / F32_FLOP_PER_S,
                        3 * flops / 2 / BF16_TC_FLOP_PER_S)
             log(f"{name}: design {pfd.DESIGNS[design]} (P V on the tensor"
@@ -375,7 +414,9 @@ def kernel_phase(flush):
                 f"GFLOP bf16); all in f32 FMA it was "
                 f"{flops / F32_FLOP_PER_S * 1e3:.6g} ms")
         rows.append(dict(
-            name=name, route="cuda", path="paged",
+            name=name, route="cuda",
+            path=("binary+spec" if binary else
+                  "spec" if sq == VERIFY_M else "paged"),
             source="src/repro_torch/csrc/paged_flash_decode.cu",
             replaces="src/repro/kernels/paged_flash_decode.py:228",
             max_abs_err=err, ms=cuda_ms(kern, flush=flush),
@@ -444,16 +485,19 @@ def bound(bytes_, op_s):
                 bound_by="bytes" if byte_s >= op_s else "operations")
 
 
-def library_attention(a, sq):
+def library_attention(a, sq, binary=False):
     """One PyTorch call computing the same attention on K/V gathered
     into logical order beforehand (a yardstick; the port never calls
-    it).  Masked keys get -inf through a boolean mask."""
+    it), with the keys binarized beforehand too in binary mode.  Masked
+    keys get -inf through a boolean mask."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.ref import paged_gather_ref
 
     qr, kpool, vpool, table, kv_len, q_pos = a
     k = paged_gather_ref(kpool, table).float()
+    if binary:
+        k = torch.where(k > 0, 1.0, -1.0)
     v = paged_gather_ref(vpool, table).float()
     s_log = k.shape[2]
     kpos = torch.arange(s_log, device=qr.device)
@@ -827,15 +871,21 @@ def profiled(run):
                         for name, us in by_name.most_common(6)])
 
 
-def profile_run(eng, vocab, lens):
-    """A second, profiled run on the same engine (8 requests, 8 new
-    tokens each)."""
+def slice_requests(vocab, seed, rid0=0, max_new=32, **sampling):
+    """The slice's 8 requests (prompt lengths ``SLICE_LENS``)."""
     from repro_torch.serving import Request, SamplingParams
 
-    rng = np.random.default_rng(SEED + 1)
-    reqs = [Request(prompt=[int(t) for t in rng.integers(0, vocab, n)],
-                    sampling=SamplingParams(max_new=8), rid=100 + i)
-            for i, n in enumerate(lens)]
+    rng = np.random.default_rng(seed)
+    return [Request(prompt=[int(t) for t in rng.integers(0, vocab, n)],
+                    sampling=SamplingParams(max_new=max_new, **sampling),
+                    rid=rid0 + i)
+            for i, n in enumerate(SLICE_LENS)]
+
+
+def profile_run(eng, vocab, sampling):
+    """A second, profiled run on the same engine (8 requests, 8 new
+    tokens each, the timed run's sampling policy)."""
+    reqs = slice_requests(vocab, SEED + 1, rid0=100, max_new=8, **sampling)
     ticks0 = eng.ticks
 
     def run():
@@ -846,67 +896,195 @@ def profile_run(eng, vocab, lens):
     return dict(ticks=eng.ticks - ticks0, **prof)
 
 
-def slice_phase():
+def serve_run(backend, *, spec_k=0, sampling=None, profile=True):
+    """``camformer-bert`` at full width in bf16 (seeded random weights),
+    served by ``ServeEngine`` (8 slots, 1024 tokens, 64-token pages,
+    overlap mode) for the slice's 8 requests of 32 new tokens: every
+    request finishes on ``length`` with 32 in-vocabulary tokens, no tick
+    fails, one readback a tick, no plain version runs on the card.
+    Returns (requests, launches, the slice line's numbers, layers)."""
     from repro_torch.configs import get_config
     from repro_torch.models import count_params, init_params
-    from repro_torch.serving import Request, SamplingParams, ServeEngine
+    from repro_torch.serving import ServeEngine
 
-    launches = {}
-    results = {}
-    for backend in ("camformer", "dense"):
-        cfg = get_config("camformer-bert", attn_backend=backend)
-        params = init_params(cfg, device="cuda", seed=SEED)
-        n_params = count_params(params)
-        eng = ServeEngine(cfg, params, max_batch=8, max_len=1024,
-                          page_size=64, mode="overlap", device="cuda")
-        del params
-        rng = np.random.default_rng(SEED)
-        lens = SLICE_LENS
-        reqs = [Request(prompt=[int(t) for t in
-                                rng.integers(0, cfg.vocab, n)],
-                        sampling=SamplingParams(max_new=32), rid=i)
-                for i, n in enumerate(lens)]
+    sampling = sampling or {}
+    label = f"{backend}{f' spec_k={spec_k}' if spec_k else ''}"
+    cfg = get_config("camformer-bert", attn_backend=backend)
+    params = init_params(cfg, device="cuda", seed=SEED)
+    n_params = count_params(params)
+    eng = ServeEngine(cfg, params, max_batch=8, max_len=1024, page_size=64,
+                      mode="overlap", spec_k=spec_k, device="cuda")
+    del params
+    reqs = slice_requests(cfg.vocab, SEED, **sampling)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with plain_calls_on_card() as plain:
+        t0 = time.perf_counter()
+        first = {}
+        n_tok = 0
+        for out in eng.stream(*reqs):
+            first.setdefault(out.rid, time.perf_counter() - t0)
+            n_tok += out.token is not None
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        with plain_calls_on_card() as plain:
-            t0 = time.perf_counter()
-            first = {}
-            n_tok = 0
-            for out in eng.stream(*reqs):
-                first.setdefault(out.rid, time.perf_counter() - t0)
-                n_tok += out.token is not None
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        launches[backend] = read_launches()
-        assert plain == {}, f"{backend}: plain versions ran on the card "\
-            f"{plain}"
-        assert eng.tick_errors == 0, f"{backend}: {eng.last_error}"
-        for r in reqs:
-            assert r.finish_reason == "length", (backend, r.rid,
-                                                 r.finish_reason, r.error)
-            assert len(r.tokens) == 32, (backend, r.rid, len(r.tokens))
-            assert all(0 <= t < cfg.vocab for t in r.tokens), (backend, r.rid)
-        assert eng.readbacks == eng.ticks + eng.prefill_ticks, (
-            backend, eng.readbacks, eng.ticks, eng.prefill_ticks)
-        ttft = sorted(first.values())
-        results[backend] = dict(
-            wall_s=wall, ticks=eng.ticks, ticks_per_s=eng.ticks / wall,
-            tokens=n_tok, tokens_per_s=n_tok / wall,
-            ttft_p50_s=statistics.median(ttft), ttft_max_s=ttft[-1],
-            readbacks=eng.readbacks, host_blocked_s=eng.blocked_s,
-            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-            params=n_params,
-            launches={k: v for k, v in launches[backend].items() if v})
-        log(f"slice camformer-bert/{backend}: {json.dumps(results[backend])}")
-        log(f"profile camformer-bert/{backend}: "
-            f"{json.dumps(profile_run(eng, cfg.vocab, lens))}")
-        del eng
-        torch.cuda.empty_cache()
-    assert launches["camformer"]["bacam_paged_topk_stage1"] > 0, launches
-    assert launches["dense"]["paged_flash_decode"] > 0, launches
-    assert launches["dense"]["paged_flash_decode (sq>1)"] > 0, launches
-    return launches
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    assert plain == {}, f"{label}: plain versions ran on the card {plain}"
+    assert eng.tick_errors == 0, f"{label}: {eng.last_error}"
+    for r in reqs:
+        assert r.finish_reason == "length", (label, r.rid, r.finish_reason,
+                                             r.error)
+        assert len(r.tokens) == 32, (label, r.rid, len(r.tokens))
+        assert all(0 <= t < cfg.vocab for t in r.tokens), (label, r.rid)
+    assert eng.readbacks == eng.ticks + eng.prefill_ticks, (
+        label, eng.readbacks, eng.ticks, eng.prefill_ticks)
+    ttft = sorted(first.values())
+    result = dict(
+        wall_s=wall, ticks=eng.ticks, ticks_per_s=eng.ticks / wall,
+        tokens=n_tok, tokens_per_s=n_tok / wall,
+        ttft_p50_s=statistics.median(ttft), ttft_max_s=ttft[-1],
+        readbacks=eng.readbacks, prefill_ticks=eng.prefill_ticks,
+        host_blocked_s=eng.blocked_s,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        params=n_params, sampling=sampling,
+        launches={k: v for k, v in launches.items() if v})
+    if spec_k:
+        assert 0 <= eng.spec_accepted <= eng.spec_proposed, label
+        result.update(spec_proposed=eng.spec_proposed,
+                      spec_accepted=eng.spec_accepted,
+                      spec_acceptance=eng.spec_acceptance)
+    log(f"slice camformer-bert/{label}: {json.dumps(result)}")
+    if profile:
+        log(f"profile camformer-bert/{label}: "
+            f"{json.dumps(profile_run(eng, cfg.vocab, sampling))}")
+    del eng
+    torch.cuda.empty_cache()
+    return reqs, launches, result, cfg.n_layers
+
+
+def slice_phase():
+    """Greedy serving on ``camformer`` and ``dense``, then ``binary`` and
+    ``hybrid``; returns each run's launches."""
+    runs = {}
+    for backend in ("camformer", "dense", "binary", "hybrid"):
+        runs[backend] = serve_run(backend)[1]
+    cam, dense, binary, hybrid = (runs[k] for k in (
+        "camformer", "dense", "binary", "hybrid"))
+    assert cam["bacam_paged_topk_stage1"] > 0, cam
+    assert dense["paged_flash_decode"] > 0, dense
+    assert dense["paged_flash_decode (sq>1)"] > 0, dense
+    # binary: every row through the flash kernel, decode rows in its
+    # binary mode; hybrid: CAM decode rows, flash-scored prefill chunks
+    assert binary["paged_flash_decode (binary)"] > 0, binary
+    assert binary["paged_flash_decode (sq>1)"] > 0, binary
+    assert binary["paged_flash_decode"] == 0, binary
+    assert hybrid["bacam_paged_topk_stage1"] > 0, hybrid
+    assert hybrid["paged_flash_decode (sq>1)"] > 0, hybrid
+    assert hybrid["paged_flash_decode"] == 0, hybrid
+    assert hybrid["paged_flash_decode (binary)"] == 0, hybrid
+    return runs
+
+
+SPEC_SAMPLING = dict(temperature=0.9, top_k=40, top_p=0.95)
+
+
+def spec_phase():
+    """Self-speculative decoding at full width: the ``binary`` drafter
+    with ``spec_k = SPEC_K`` on ``dense`` and ``camformer`` targets, the
+    8 requests at temperature 0.9, top-k 40, top-p 0.95, overlap mode;
+    beside each, plain decode of the same requests.  Asserts the launch
+    counts exactly: per decode tick, m = SPEC_K + 1 binary decode steps a
+    layer and (dense target) one verify chunk a layer; per prefill tick
+    one chunk a layer for the drafter and (dense target) one for the
+    target; no stage-1 launch (the target runs no decode rows, and a
+    camformer verify chunk gathers).  At bf16 the verify logits (chunk
+    tiles) and sequential decode logits (split-KV) sum in different
+    orders, so the share of tokens equal to plain decode is reported,
+    not asserted."""
+    runs = {}
+    m = SPEC_K + 1
+    for target in ("dense", "camformer"):
+        spec_reqs, launches, result, n = serve_run(
+            target, spec_k=SPEC_K, sampling=SPEC_SAMPLING)
+        ticks, pticks = result["ticks"], result["prefill_ticks"]
+        verify = f"paged_flash_decode (sq>1, verify m={VERIFY_M})"
+        dense = target == "dense"
+        want = {"paged_flash_decode (binary)": ticks * m * n,
+                verify: ticks * n if dense else 0,
+                "paged_flash_decode (sq>1)": pticks * n * (2 if dense
+                                                           else 1),
+                "paged_flash_decode": 0, "bacam_paged_topk_stage1": 0}
+        got = {k: launches[k] for k in want}
+        assert got == want, (target, got, want)
+        plain_reqs, runs[f"{target} plain"], _, _ = serve_run(
+            target, sampling=SPEC_SAMPLING, profile=False)
+        same = sum(a == b for s, p in zip(spec_reqs, plain_reqs)
+                   for a, b in zip(s.tokens, p.tokens))
+        total = sum(len(p.tokens) for p in plain_reqs)
+        log(f"spec camformer-bert/{target} bf16: {same}/{total} tokens "
+            f"equal to plain decode ({same / total:.4g}); first "
+            f"divergence per request "
+            f"{[first_divergence(s.tokens, p.tokens) for s, p in zip(spec_reqs, plain_reqs)]}")
+        runs[f"{target} spec"] = launches
+    return runs
+
+
+def first_divergence(a, b):
+    """The index of the first differing token (None when equal)."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def spec_exactness_phase():
+    """On the card at the f32 smoke widths: keyed draws on a CUDA logits
+    tensor equal the same draws on its CPU copy, and speculative streams
+    (spec_k = 2, binary drafter) equal plain decode at temperature 0.9,
+    in sync and in overlap mode, on ``dense`` and ``camformer``."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import Request, SamplingParams, ServeEngine
+    from repro_torch.serving import sampler as S
+
+    rng = np.random.default_rng(SEED)
+    b, v = 16, 30522
+    args = [torch.from_numpy(x) for x in (
+        (rng.standard_normal((b, v)) * 3).astype(np.float32),
+        rng.integers(0, 2**32, (b, 2), dtype=np.uint64).astype(np.int64),
+        rng.integers(0, 1000, b).astype(np.int32),
+        np.where(np.arange(b) % 4 == 1, 0.0, 0.9).astype(np.float32),
+        rng.choice([0, 1, 40], b).astype(np.int32),
+        rng.choice([1.0, 0.95], b).astype(np.float32))]
+    got = S.sample_step_keyed(*[x.cuda() for x in args]).cpu()
+    assert torch.equal(got, S.sample_step_keyed(*args)), "keyed draws"
+    log(f"keyed draws ({b} rows x {v}, temperature 0.9 with greedy rows): "
+        "card equal to CPU")
+    for target in ("dense", "camformer"):
+        cfg = smoke_config("camformer-bert", attn_backend=target)
+        params = init_params(cfg, device="cuda", seed=SEED)
+        streams = {}
+        for mode, spec_k in (("sync", 0), ("sync", 2), ("overlap", 2)):
+            eng = ServeEngine(cfg, params, max_batch=4, max_len=96,
+                              page_size=8, mode=mode, spec_k=spec_k,
+                              device="cuda")
+            prng_ = np.random.default_rng(SEED + 2)
+            reqs = [Request(prompt=[int(t) for t in
+                                    prng_.integers(0, cfg.vocab, n)],
+                            sampling=SamplingParams(max_new=24,
+                                                    **SPEC_SAMPLING),
+                            rid=i)
+                    for i, n in enumerate((5, 17, 33, 9, 24, 3))]
+            for _ in eng.stream(*reqs):
+                pass
+            assert eng.tick_errors == 0, eng.last_error
+            assert eng.readbacks == eng.ticks + eng.prefill_ticks
+            streams[(mode, spec_k)] = [r.tokens for r in reqs]
+            if spec_k:
+                acc = f"{eng.spec_accepted}/{eng.spec_proposed}"
+        plain = streams[("sync", 0)]
+        for key, toks in streams.items():
+            assert toks == plain, (target, key)
+        log(f"spec exactness camformer-bert smoke/{target} f32: spec_k=2 "
+            f"streams (sync, overlap) equal plain decode at temperature "
+            f"0.9 ({sum(map(len, plain))} tokens, {acc} drafts accepted)")
 
 
 def contiguous_slice_phase():
@@ -1011,6 +1189,50 @@ def kernel_instance(mangled):
     return mangled
 
 
+STAGE1_TESTS = "bacam_kernel or topk_kernel or stage1 or contiguous_path"
+
+
+def stage1_bounds_check(n_orders=3):
+    """The stage-1 fault check (``--stage1-bounds``): the two BA-CAM
+    stage-1 sources built with their bounds check (``kernels/build.py``:
+    every global access trapped outside its tensor, a synchronize after
+    every launch), then the ``gpu``-marked stage-1 tests of
+    ``tests/test_torch_cuda.py`` in ``n_orders`` shuffled orders (one
+    pytest process each), then the kernel phases in this process.  Raises
+    on the first failure."""
+    import os
+
+    from repro_torch.kernels import build
+
+    os.environ[build.BOUNDS_ENV] = "1"  # this process and the pytest ones
+    took = build.build(build.STAGE1_SOURCES)
+    log(f"stage-1 bounds build: {took} (flags "
+        f"{build.flags(build.STAGE1_SOURCES[0])})")
+    test_file = str(ROOT / "tests" / "test_torch_cuda.py")
+    pytest = [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+              "-m", "gpu"]
+    ids = subprocess.run(
+        pytest + ["--collect-only", "-k", STAGE1_TESTS, test_file],
+        capture_output=True, text=True, check=True, cwd=ROOT).stdout
+    ids = [line for line in ids.splitlines() if "::" in line]
+    assert ids, "no stage-1 tests collected"
+    for seed in range(n_orders):
+        order = [ids[i] for i in np.random.default_rng(seed).permutation(
+            len(ids))]
+        proc = subprocess.run(pytest + order, capture_output=True, text=True,
+                              cwd=ROOT)
+        tail = proc.stdout.strip().splitlines()[-1:]
+        log(f"stage-1 bounds, order {seed} ({len(order)} tests, first "
+            f"{order[0].split('::')[1]}): exit {proc.returncode} {tail}")
+        assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-2000:]
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    n_rows = len(kernel_phase(flush) + contiguous_kernel_phase(flush))
+    torch.cuda.synchronize()
+    log(f"stage-1 bounds, kernel phases ({n_rows} timed rows, every launch "
+        f"synchronized): no trap")
+    return dict(orders=n_orders, tests=len(ids), trapped=False)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1023,6 +1245,9 @@ def main():
     log(smi.stdout.strip().splitlines()[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    if sys.argv[1:] == ["--stage1-bounds"]:
+        print(json.dumps({"stage1_bounds": stage1_bounds_check()}))
+        return 0
 
     from repro_torch.kernels import build
 
@@ -1047,8 +1272,9 @@ def main():
     del flush
     parity_phase()
     contiguous_parity_phase()
-    runs = list(slice_phase().values()) + list(
-        contiguous_slice_phase().values())
+    spec_exactness_phase()
+    runs = (list(slice_phase().values()) + list(spec_phase().values())
+            + list(contiguous_slice_phase().values()))
     for row in rows:  # launches over every path run
         row["launches"] = sum(run[row["name"]] for run in runs)
         if row["path"] != "none":

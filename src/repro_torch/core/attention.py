@@ -12,7 +12,8 @@ cached) K/V in three modes: ``dense`` (softmax attention, the oracle),
 (binary scores, two-stage top-k, softmax over the survivors, sparse V
 gather).  With ``AttentionSpec.use_kernel`` the binary scores come from
 the BA-CAM CUDA kernel (kernels/bacam_mvm.py) on a CUDA tensor.
-``camformer_paged_attention`` is the serving path over paged pools.
+``binary_paged_attention`` and ``camformer_paged_attention`` are the
+serving paths over paged pools.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from repro_torch.core import bacam
 from repro_torch.core.binarize import binarize_qk, had_scales, sign_pm1
 from repro_torch.core.topk import NEG_INF, stable_topk, two_stage_topk
 
-__all__ = ["AttentionSpec", "attention", "camformer_paged_attention",
+__all__ = ["AttentionSpec", "attention", "binary_paged_attention",
+           "camformer_paged_attention",
            "dense_attention", "dense_reference", "make_mask",
            "topk_softmax_weights"]
 
@@ -244,6 +246,82 @@ def _gather_topk(qp, kp, kv_len, q_positions, spec, d, g, window):
     return torch.cat(top_v, dim=2), torch.cat(top_i, dim=2)
 
 
+def _row_temps(q_scale, k_scale, hkv, g, sq):
+    """Per-row softmax temperature (B, H_kv, G * Sq): q_scale (B, H, Sq)
+    times the running key scale, per slot (B, H_kv) or per query column
+    (B, H_kv, Sq) (speculative verify chunks, where column j's scale
+    covers keys up to its own position)."""
+    b = q_scale.shape[0]
+    ks = k_scale.to(torch.float32)
+    if ks.ndim == 2:
+        ks = ks[:, :, None]
+    ks = ks[:, :, None, :].expand(b, hkv, g, sq)
+    return q_scale.reshape(b, hkv, g * sq) * ks.reshape(b, hkv, g * sq)
+
+
+def binary_paged_attention(q, k_pages, v_pages, k_scale, page_table, kv_len,
+                           q_positions, spec: AttentionSpec = AttentionSpec(
+                               mode="binary"), *, window=None, scale=None,
+                           impl="fused"):
+    """Binary (HAD sign-match, FULL softmax) attention against paged
+    dense-storage K/V pools.
+
+    Q and the paged keys binarize at attend time; the softmax temperature
+    is ``q_scale * k_scale`` with ``k_scale`` the slot's running per-head
+    key scale (B, H_kv), or per-query scales (B, H_kv, Sq) for a
+    speculative verify chunk.  ``impl="fused"`` runs the paged flash
+    kernel in its binary mode (kernels/paged_flash_decode.py): decode rows
+    through ``paged_flash_decode``, chunk rows through
+    ``paged_flash_prefill``, the temperature folded into the query rows.
+    ``impl="gather"`` gathers the pages into logical order and runs the
+    same masked softmax in plain PyTorch.
+
+    Shapes as ``camformer_paged_attention`` but with dense ``k_pages``
+    (P, H_kv, page, D).  Returns (B, H, Sq, Dv) in q's dtype.
+    """
+    b, h, sq, d = q.shape
+    _, hkv, page, dv = v_pages.shape
+    g = h // hkv
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    kv_len = kv_len.reshape(b).to(torch.int32)
+    qf = q.to(torch.float32)
+    temp = _row_temps(had_scales(qf, keepdim=False), k_scale, hkv, g, sq)
+
+    if impl == "fused":
+        from repro_torch.kernels import ops as kops  # local: no cycle
+
+        if sq == 1:
+            return kops.paged_flash_decode(
+                q, k_pages, v_pages, page_table, kv_len,
+                q_positions.reshape(b), temp=temp, binary=True,
+                window=window, scale=scale)
+        return kops.paged_flash_prefill(
+            q, k_pages, v_pages, page_table, kv_len, q_positions[:, 0],
+            temp=temp, binary=True, window=window, scale=scale)
+
+    from repro_torch.kernels.ref import paged_gather_ref
+
+    ck = paged_gather_ref(k_pages, page_table)  # (B, H_kv, S_log, D)
+    cv = paged_gather_ref(v_pages, page_table)
+    s_log = ck.shape[2]
+    qb = sign_pm1(qf).reshape(b, hkv, g * sq, d)
+    kb = sign_pm1(ck.to(torch.float32))
+    scores = torch.einsum("bhrd,bhkd->bhrk", qb, kb)
+    kpos = torch.arange(s_log, dtype=torch.int32, device=q.device)
+    qpos = q_positions.to(torch.int32)[:, None, None, :].expand(
+        b, hkv, g, sq).reshape(b, hkv, g * sq, 1)
+    ok = (kpos < kv_len.reshape(b, 1, 1, 1)) & (kpos <= qpos)
+    if window is not None:
+        ok = ok & (kpos > qpos - window)
+    logits = torch.where(ok, scores * temp[..., None] * scale,
+                         torch.full_like(scores, NEG_INF))
+    w = torch.where(ok, torch.softmax(logits, dim=-1),
+                    torch.zeros_like(logits))  # inert rows: zero out
+    out = torch.einsum("bhrk,bhkd->bhrd", w, cv.to(torch.float32))
+    return out.reshape(b, h, sq, dv).to(q.dtype)
+
+
 def camformer_paged_attention(q, kp_pages, v_pages, k_scale, page_table,
                               kv_len, q_positions,
                               spec: AttentionSpec = AttentionSpec(), *,
@@ -258,7 +336,8 @@ def camformer_paged_attention(q, kp_pages, v_pages, k_scale, page_table,
     only the selected V rows are gathered from the paged pool.
 
     q: (B, H, Sq, D); kp_pages: (P, H_kv, page, D/32) int32; v_pages:
-    (P, H_kv, page, Dv); k_scale: (B, H_kv) running key scale;
+    (P, H_kv, page, Dv); k_scale: (B, H_kv) running key scale, or
+    (B, H_kv, Sq) per-query scales (speculative verify chunks);
     page_table: (B, NP); kv_len: (B,); q_positions: (B, Sq).
     Returns (B, H, Sq, Dv) in q's dtype.
     """
@@ -299,8 +378,7 @@ def camformer_paged_attention(q, kp_pages, v_pages, k_scale, page_table,
     heads = torch.arange(hkv, device=q.device)[None, :, None, None]
     v_sel = v_pages[phys, heads, row]  # (B, H_kv, R, K, Dv)
 
-    ks = k_scale.to(torch.float32)[:, :, None, None]  # (B, H_kv, 1, 1)
-    temp = q_scale.reshape(b, hkv, g * sq)[..., None] * ks
+    temp = _row_temps(q_scale, k_scale, hkv, g, sq)[..., None]
     w, _ = topk_softmax_weights(top_v, temp, scale)
     out = torch.einsum("bhrk,bhrkd->bhrd", w.to(v_pages.dtype), v_sel)
     return out.reshape(b, h, sq, dv).to(q.dtype)

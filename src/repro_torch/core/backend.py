@@ -9,18 +9,32 @@ An ``AttentionBackend`` defines how one attention layer realizes
   * its paged pool layout (``page_spec``) and the paged prefill/decode
     step against it (``paged_decode``, the serving engine's path).
 
-This port carries two backends:
+The four backends of the reference:
 
   * ``dense``     — softmax attention over bf16/f32 K/V pages, the oracle;
+  * ``binary``    — HAD-binarized scoring with a full softmax over dense
+                    K/V pages plus a running per-slot ``k_scale`` (the
+                    single-stage ablation lane, and the default drafter
+                    of speculative decoding);
   * ``camformer`` — the paper: bit-packed binary key pages, two-stage
-                    top-k CAM search, sparse top-k V gather.
+                    top-k CAM search, sparse top-k V gather;
+  * ``hybrid``    — camformer's pools plus a dense key pool: prefill
+                    chunks flash-score over the dense pools, decode rows
+                    and speculative verify chunks take the CAM path.
 
 Each ``paged_decode`` has two realizations (``ModelConfig.paged_impl``):
 ``"fused"`` runs the decode rows through the paged CUDA kernels
-(kernels/paged_flash_decode.py for dense, kernels/bacam_decode.py for
-camformer) and ``"gather"`` gathers the pages into logical order and
-attends in plain PyTorch.  Dense Sq > 1 chunks follow
-``prefill_paged_impl``; camformer chunks always gather.
+(kernels/paged_flash_decode.py for dense and binary, its binary mode for
+the latter, kernels/bacam_decode.py for camformer and hybrid) and
+``"gather"`` gathers the pages into logical order and attends in plain
+PyTorch.  Dense and binary Sq > 1 chunks follow ``prefill_paged_impl``;
+camformer chunks always gather.
+
+Under ``cfg.spec_verify`` (a speculative verify chunk, with the
+``k_means`` pool leaf sized ``spec_k + 1``) the stateful backends score
+each chunk column with the running key scale AT ITS OWN POSITION
+(``_chunk_scale_seq``) and stash the chunk's per-position key means in
+``k_means``, so serving/speculate.py can roll the scale back exactly.
 
 Contiguous camformer decode rows (and prefill chunks) run the BA-CAM
 association kernel (kernels/bacam_topk.py) when ``cfg.use_kernel`` is
@@ -48,14 +62,15 @@ import torch
 from repro_torch.core import bacam
 from repro_torch.core.attention import (AttentionSpec, _gather_rows,
                                         _gather_topk, attention,
+                                        binary_paged_attention,
                                         camformer_paged_attention,
                                         dense_attention,
                                         topk_softmax_weights)
 from repro_torch.core.binarize import had_scales, sign_pm1
 from repro_torch.core.topk import stable_topk
 
-__all__ = ["AttentionBackend", "DenseBackend", "CamformerBackend",
-           "register_backend", "get_backend", "list_backends",
+__all__ = ["AttentionBackend", "DenseBackend", "BinaryBackend",
+           "CamformerBackend", "HybridBackend", "register_backend", "get_backend", "list_backends",
            "backends_for"]
 
 _BACKENDS: Dict[str, "AttentionBackend"] = {}
@@ -74,8 +89,7 @@ def get_backend(name: str) -> "AttentionBackend":
         return _BACKENDS[name]
     except KeyError:
         raise KeyError(f"unknown attention backend {name!r}; have "
-                       f"{sorted(_BACKENDS)} (binary and hybrid are not "
-                       "ported yet)") from None
+                       f"{sorted(_BACKENDS)}") from None
 
 
 def list_backends() -> list:
@@ -140,6 +154,59 @@ def _running_k_scale(k_scale, k, pos, kv_len, base):
     ks = ((k_scale * prior[:, None] + new_sum)
           / torch.clamp(total, min=1.0)[:, None])
     return torch.where((total > 0)[:, None], ks, k_scale)
+
+
+def _chunk_scale_seq(k_scale, k, pos, kv_len, base):
+    """Per-query running key scales of a speculative verify chunk.
+
+    The query at chunk column j must see the running mean over keys up to
+    ITS OWN position (the value sequential decode would use), not a mean
+    that includes the chunk's later keys.  Arguments as
+    ``_running_k_scale``.  Returns ``(per_query (B, H_kv, S), means
+    (B, H_kv, S))``: the sequential-semantics scale of each column, and
+    the chunk's valid-masked per-position ``mean_d(|k|)`` (the
+    ``k_means`` leaf, from which the rollback rebuilds the running mean
+    at any accepted length).
+    """
+    b = k.shape[0]
+    valid = (pos < kv_len[:, None]).to(torch.float32)  # (B, S)
+    means = had_scales(k.to(torch.float32), dim=3,
+                       keepdim=False) * valid[:, None, :]
+    if base is None:
+        base = torch.zeros((b,), dtype=torch.int32, device=k.device)
+    prior = torch.clamp(torch.minimum(pos[:, 0], kv_len)
+                        - base.reshape(b).to(torch.int32),
+                        min=0).to(torch.float32)  # (B,)
+    cum = torch.cumsum(means, dim=2)
+    cnt = prior[:, None] + torch.cumsum(valid, dim=1)  # (B, S)
+    per_q = ((k_scale[:, :, None] * prior[:, None, None] + cum)
+             / torch.clamp(cnt, min=1.0)[:, None, :])
+    per_q = torch.where((cnt > 0)[:, None, :], per_q, k_scale[:, :, None])
+    return per_q, means
+
+
+def _verify_scales(cache, k_scale_before, k, positions, kv_len, base, cfg,
+                   sq):
+    """Under ``cfg.spec_verify``, for a chunk of ``spec_k + 1`` columns:
+    the per-query scales (B, H_kv, Sq) and, in place, the ``k_means``
+    stash.  Otherwise the slot's running ``k_scale`` (B, H_kv)."""
+    means = cache.get("k_means")
+    if not (sq > 1 and cfg.spec_verify and means is not None
+            and means.shape[-1] == sq):
+        return cache["k_scale"]
+    per_q, cache["k_means"] = _chunk_scale_seq(
+        k_scale_before, k, positions.to(torch.int32),
+        kv_len.reshape(k.shape[0]).to(torch.int32), base)
+    return per_q
+
+
+def _k_means_spec(cfg, max_batch):
+    """The speculative verify scratch leaf, present only with spec_k > 0:
+    the tick's per-position key means (B, H_kv, spec_k + 1)."""
+    if cfg.spec_k <= 0:
+        return {}
+    return {"k_means": ((max_batch, cfg.n_kv_heads, cfg.spec_k + 1),
+                        torch.float32)}
 
 
 def _page_phys_rows(page_table, positions, page: int, kv_len=None):
@@ -286,6 +353,50 @@ class DenseBackend(AttentionBackend):
         return dense_attention(q, ck, cv, mask[:, None, None])
 
 
+class BinaryBackend(DenseBackend):
+    """HAD-binarized scoring with a FULL softmax (no top-k sparsity).
+
+    Contiguous storage is dense's (keys binarize at attend time).  The
+    paged pools add camformer's running per-slot ``k_scale``, kept at
+    page-write time over valid tokens only, as the softmax temperature.
+    """
+
+    name = "binary"
+    mode = "binary"
+
+    def page_spec(self, cfg, n_pages, page_size, max_batch, dtype):
+        spec = super().page_spec(cfg, n_pages, page_size, max_batch, dtype)
+        spec["k_scale"] = ((max_batch, cfg.n_kv_heads), torch.float32)
+        spec.update(_k_means_spec(cfg, max_batch))
+        return spec
+
+    def _paged_write(self, cache, k, v, positions, page_table, kv_len=None,
+                     base=None):
+        super()._paged_write(cache, k, v, positions, page_table, kv_len)
+        b = k.shape[0]
+        pos = positions.to(torch.int32)
+        kvl = (torch.full((b,), pos.shape[1], dtype=torch.int32,
+                          device=k.device) if kv_len is None
+               else kv_len.reshape(b).to(torch.int32))
+        cache["k_scale"] = _running_k_scale(cache["k_scale"], k, pos, kvl,
+                                            base)
+        return cache
+
+    def paged_decode(self, q, cache, k, v, positions, page_table, kv_len,
+                     cfg, *, base=None):
+        before = cache["k_scale"]
+        cache = self._paged_write(cache, k, v, positions, page_table, kv_len,
+                                  base=base)
+        sq = q.shape[2]
+        k_scale = _verify_scales(cache, before, k, positions, kv_len, base,
+                                 cfg, sq)
+        impl = cfg.paged_impl if sq == 1 else cfg.prefill_paged_impl
+        out = binary_paged_attention(
+            q, cache["k_pages"], cache["v_pages"], k_scale, page_table,
+            kv_len, positions, self.spec(cfg), window=cfg.window, impl=impl)
+        return out, cache
+
+
 class CamformerBackend(AttentionBackend):
     """The paper's BA-CAM realization: bit-packed binary key pages,
     two-stage top-k CAM search, softmax over the k survivors, sparse
@@ -381,12 +492,13 @@ class CamformerBackend(AttentionBackend):
         if page_size % cfg.group_size != 0:
             raise ValueError(f"page_size={page_size} must tile by "
                              f"group_size={cfg.group_size}")
-        if cfg.spec_k > 0:
-            raise NotImplementedError("speculative decoding is not ported")
+        # the k_means stash is doubly needed here: the packed pool keeps
+        # signs only, so chunk key magnitudes are gone after the write
         return {
             "kp_pages": ((n_pages, hkv, page_size, d // 32), torch.int32),
             "v_pages": ((n_pages, hkv, page_size, d), dtype),
             "k_scale": ((max_batch, hkv), torch.float32),
+            **_k_means_spec(cfg, max_batch),
         }
 
     def _paged_write(self, cache, k, v, positions, page_table, kv_len,
@@ -411,14 +523,68 @@ class CamformerBackend(AttentionBackend):
 
     def paged_decode(self, q, cache, k, v, positions, page_table, kv_len,
                      cfg, *, base=None):
+        before = cache["k_scale"]
         cache = self._paged_write(cache, k, v, positions, page_table, kv_len,
                                   base=base)
+        k_scale = _verify_scales(cache, before, k, positions, kv_len, base,
+                                 cfg, q.shape[2])
         out = camformer_paged_attention(
-            q, cache["kp_pages"], cache["v_pages"], cache["k_scale"],
-            page_table, kv_len, positions, self.spec(cfg), window=cfg.window,
+            q, cache["kp_pages"], cache["v_pages"], k_scale, page_table,
+            kv_len, positions, self.spec(cfg), window=cfg.window,
             impl=cfg.paged_impl)
         return out, cache
 
 
+class HybridBackend(CamformerBackend):
+    """Flash-scored prefill chunks + CAM decode.
+
+    The pools carry both key representations: a dense ``k_pages`` pool
+    for Sq > 1 prefill chunks (the paged flash kernel, exact softmax) and
+    camformer's packed ``kp_pages`` + running ``k_scale`` for decode rows.
+    One write keeps both current.  Speculative verify chunks take the CAM
+    path with per-query scales: verify must reproduce this backend's
+    sequential decode, which is CAM.
+    """
+
+    name = "hybrid"
+    mode = "camformer"
+
+    def page_spec(self, cfg, n_pages, page_size, max_batch, dtype):
+        spec = super().page_spec(cfg, n_pages, page_size, max_batch, dtype)
+        spec["k_pages"] = ((n_pages, cfg.n_kv_heads, page_size,
+                            cfg.head_dim), dtype)
+        return spec
+
+    def _paged_write(self, cache, k, v, positions, page_table, kv_len,
+                     base=None):
+        super()._paged_write(cache, k, v, positions, page_table, kv_len,
+                             base=base)
+        page = cache["k_pages"].shape[2]
+        phys, row = _page_phys_rows(
+            page_table, positions.to(torch.int32), page,
+            kv_len.reshape(k.shape[0]).to(torch.int32))
+        _write_rows(cache["k_pages"], phys, row, k)
+        return cache
+
+    def prefill(self, q, k, v, cfg, *, causal=True, positions=None,
+                window=None):
+        # whole-prompt prefill is flash-scored, as the paged chunks are
+        return get_backend("dense").prefill(
+            q, k, v, cfg, causal=causal, positions=positions, window=window)
+
+    def paged_decode(self, q, cache, k, v, positions, page_table, kv_len,
+                     cfg, *, base=None):
+        if q.shape[2] > 1 and not cfg.spec_verify:
+            cache = self._paged_write(cache, k, v, positions, page_table,
+                                      kv_len, base=base)
+            out = get_backend("dense")._paged_attend(
+                q, cache, positions, page_table, kv_len, cfg)
+            return out, cache
+        return super().paged_decode(q, cache, k, v, positions, page_table,
+                                    kv_len, cfg, base=base)
+
+
 register_backend(DenseBackend())
+register_backend(BinaryBackend())
 register_backend(CamformerBackend())
+register_backend(HybridBackend())

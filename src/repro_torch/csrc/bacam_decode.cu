@@ -48,6 +48,7 @@ struct PagedKeys {
   __device__ __forceinline__ const uint32_t* addr(int i) const {
     const int kk = i / W;
     const int j = kk / page;
+    S1_CHECK(s1::kTable, table + j, 4);
     const int phys = min(max(__ldg(table + j), 0), P - 1);
     return pool + ((static_cast<size_t>(phys) * H + h) * page +
                    (kk - j * page)) * W + (i - kk * W);
@@ -93,7 +94,17 @@ extern "C" int bacam_paged_topk_stage1(
                                has_window, window);
   const dim3 grid(pl.key_tiles, H * pl.p.row_tiles, B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return s1::dispatch(W, pl, [&](auto w, auto kmax, auto rpl, auto lpg) {
+#ifdef BACAM_STAGE1_BOUNDS
+  const unsigned long long out =
+      4ull * B * H * R * pl.p.ngroups * stage1_k;
+  const s1::Extent ext[s1::kNumTensors] = {
+      {q, 4ull * B * H * R * W}, {kp, 4ull * P * H * page * W},
+      {page_table, 4ull * B * NP}, {q_pos, 4ull * B}, {kv_len, 4ull * B},
+      {vals, out}, {idx, out}};
+  if (const int e = s1::set_extents(ext, s)) return e;
+#endif
+  const int err = s1::dispatch(W, pl, [&](auto w, auto kmax, auto rpl,
+                                          auto lpg) {
     bacam_paged_topk_stage1_kernel<decltype(w)::value, decltype(kmax)::value,
                                    decltype(rpl)::value, decltype(lpg)::value>
         <<<grid, pl.threads, pl.smem, s>>>(
@@ -104,4 +115,5 @@ extern "C" int bacam_paged_topk_stage1(
             static_cast<int32_t*>(idx), pl.p, H, P, page, NP);
     return static_cast<int>(cudaGetLastError());
   });
+  return s1::finish_launch(err, s);
 }

@@ -54,15 +54,82 @@
 // a 128-row chunk over 1,024 keys (16.8 M pairs, about 13.6 M of them
 // live) is about 7 us of popcount alone, above its 5.3 us byte bound
 // (16.8 MB of candidates written).  A decode step is bounded by its launch.
+//
+// Bounds check (a debug build: kernels/build.py compiles the two sources
+// with -DBACAM_STAGE1_BOUNDS when asked).  The host entry copies each
+// tensor's byte extent into constant memory before the launch; every
+// global load and store of the body, and every shared-memory store, is
+// checked against its own tensor's extent (or the tile's), and an access
+// outside it prints the tensor, the offset and the thread, then traps.
+// The entry synchronizes after the launch, so the error it returns is
+// this launch's own.
 
 #pragma once
 
 #include <climits>
 #include <cstdint>
+#include <cstdio>
 #include <type_traits>
 #include <cuda_runtime.h>
 
 namespace bacam_stage1 {
+
+// The tensors a launch touches, for the bounds check.
+enum Tensor { kQ, kKeys, kTable, kQpos, kKvlen, kVals, kIdx, kNumTensors };
+
+#ifdef BACAM_STAGE1_BOUNDS
+struct Extent {
+  const void* base;
+  unsigned long long bytes;
+};
+__constant__ Extent kExtents[kNumTensors];
+
+__device__ __noinline__ void out_of_bounds(int tensor, long long off,
+                                           int bytes, int line) {
+  printf("bacam stage-1 bounds check, line %d: %d bytes at offset %lld of "
+         "tensor %d (-1: the shared tile; extent %llu bytes), block (%d, %d, "
+         "%d) thread %d\n",
+         line, bytes, off, tensor,
+         tensor >= 0 ? kExtents[tensor].bytes : 0ull, blockIdx.x,
+         blockIdx.y, blockIdx.z, threadIdx.x);
+  __trap();
+}
+
+__device__ __forceinline__ void in_bounds(int tensor, const void* p,
+                                          int bytes, int line) {
+  const long long off = static_cast<const char*>(p) -
+                        static_cast<const char*>(kExtents[tensor].base);
+  if (off < 0 || off + bytes > static_cast<long long>(kExtents[tensor].bytes))
+    out_of_bounds(tensor, off, bytes, line);
+}
+
+// Copies the extents (indexed by Tensor) for the next launch on `s`.
+inline int set_extents(const Extent (&e)[kNumTensors], cudaStream_t s) {
+  return static_cast<int>(cudaMemcpyToSymbolAsync(
+      kExtents, e, sizeof(e), 0, cudaMemcpyHostToDevice, s));
+}
+#define S1_CHECK(tensor, p, bytes) \
+  ::bacam_stage1::in_bounds((tensor), (p), (bytes), __LINE__)
+#define S1_CHECK_SMEM(i, n)                                              \
+  do {                                                                   \
+    if ((i) < 0 || (i) >= (n))                                           \
+      ::bacam_stage1::out_of_bounds(-1, (i), 4, __LINE__);               \
+  } while (0)
+#else
+#define S1_CHECK(tensor, p, bytes) ((void)0)
+#define S1_CHECK_SMEM(i, n) ((void)0)
+#endif
+
+// The error of one launch: with the bounds check, the launch is waited for
+// so that a trap reports here, on its own launch.
+inline int finish_launch(int err, cudaStream_t s) {
+#ifdef BACAM_STAGE1_BOUNDS
+  if (!err) err = static_cast<int>(cudaStreamSynchronize(s));
+#else
+  (void)s;
+#endif
+  return err;
+}
 
 constexpr int kMaskedScore = -(1 << 30);
 constexpr int kSentinel = -(1 << 20);  // a masked score inside the packing
@@ -170,6 +237,8 @@ __device__ __forceinline__ void write_top(int32_t* vals, int32_t* idx,
       v[s] = sc == kSentinel ? kMaskedScore : sc;
       i[s] = g0 + 31 - (top[s] & 31);
     }
+    S1_CHECK(kVals, vals, 8);
+    S1_CHECK(kIdx, idx, 8);
     *reinterpret_cast<int2*>(vals) = make_int2(v[0], v[1]);
     *reinterpret_cast<int2*>(idx) = make_int2(i[0], i[1]);
     return;
@@ -177,6 +246,8 @@ __device__ __forceinline__ void write_top(int32_t* vals, int32_t* idx,
 #pragma unroll
   for (int s = 0; s < KMAX; ++s) {
     if (s >= k) break;
+    S1_CHECK(kVals, vals + s, 4);
+    S1_CHECK(kIdx, idx + s, 4);
     const int sc = top[s] >> 5;
     vals[s] = sc == kSentinel ? kMaskedScore : sc;
     idx[s] = g0 + 31 - (top[s] & 31);
@@ -186,11 +257,15 @@ __device__ __forceinline__ void write_top(int32_t* vals, int32_t* idx,
 __device__ __forceinline__ void write_masked(int32_t* vals, int32_t* idx,
                                              int g0, int k) {
   if (k == 2) {
+    S1_CHECK(kVals, vals, 8);
+    S1_CHECK(kIdx, idx, 8);
     *reinterpret_cast<int2*>(vals) = make_int2(kMaskedScore, kMaskedScore);
     *reinterpret_cast<int2*>(idx) = make_int2(g0, g0 + 1);
     return;
   }
   for (int s = 0; s < k; ++s) {
+    S1_CHECK(kVals, vals + s, 4);
+    S1_CHECK(kIdx, idx + s, 4);
     vals[s] = kMaskedScore;
     idx[s] = g0 + s;
   }
@@ -274,16 +349,20 @@ __device__ __forceinline__ void stage1_block(
   const int rbase = row_tile * p.rl * RPL + lane;
 
   // 1. rows, positions and kv_len: loads that wait on nothing
+  S1_CHECK(kKvlen, kv_len, 4);
   const int kvl_raw = __ldg(kv_len);
   int qp[RPL];
   uint32_t qw[RPL][W];
 #pragma unroll
   for (int i = 0; i < RPL; ++i) {
     const int r = min(rbase + i * p.rl, p.R - 1);
+    S1_CHECK(kQpos, q_pos + r * qpos_stride, 4);
     qp[i] = __ldg(q_pos + r * qpos_stride);
 #pragma unroll
-    for (int w = 0; w < W; ++w)
+    for (int w = 0; w < W; ++w) {
+      S1_CHECK(kQ, q + static_cast<size_t>(r) * W + w, 4);
       qw[i][w] = __ldg(q + static_cast<size_t>(r) * W + w);
+    }
   }
 
   // 2. the keys.  Decode rows (LPG > 1): each lane reads its span of the
@@ -303,6 +382,7 @@ __device__ __forceinline__ void stage1_block(
 #pragma unroll
       for (int c = 0; c < kLaneKeys * W / 4; ++c) {
         if (4 * c < nw) {
+          S1_CHECK(kKeys, src + 4 * c, 16);
           const uint4 v = __ldg(reinterpret_cast<const uint4*>(src + 4 * c));
           const uint32_t e[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
@@ -312,9 +392,11 @@ __device__ __forceinline__ void stage1_block(
       }
     } else {
 #pragma unroll
-      for (int x = 0; x < kLaneKeys * W; ++x)
+      for (int x = 0; x < kLaneKeys * W; ++x) {
+        if (x < nw && i0 + x < keys.words) S1_CHECK(kKeys, src + x, 4);
         lk[x / W][x % W] =
             x < nw && i0 + x < keys.words ? __ldg(src + x) : 0u;
+      }
     }
   } else {
     const int tile_words = p.gt * p.group * W;
@@ -322,12 +404,16 @@ __device__ __forceinline__ void stage1_block(
     auto put = [&](int i, uint32_t v) {  // word i of the tile
       const int kk = i / W;
       const int w = i - kk * W;
-      ks[(w * p.group + (kk & (p.group - 1))) * gtp + (kk >> p.gshift)] = v;
+      const int at =
+          (w * p.group + (kk & (p.group - 1))) * gtp + (kk >> p.gshift);
+      S1_CHECK_SMEM(at, W * p.group * gtp);
+      ks[at] = v;
     };
     if (keys.vec && (tile_words & 3) == 0) {
 #pragma unroll 4
       for (int c = t; c < tile_words / 4; c += nthreads) {
         const int i = start + 4 * c;
+        if (i < keys.words) S1_CHECK(kKeys, keys.addr(i), 16);
         const uint4 v =
             i < keys.words
                 ? __ldg(reinterpret_cast<const uint4*>(keys.addr(i)))
@@ -338,8 +424,10 @@ __device__ __forceinline__ void stage1_block(
         put(4 * c + 3, v.w);
       }
     } else {
-      for (int i = t; i < tile_words; i += nthreads)
+      for (int i = t; i < tile_words; i += nthreads) {
+        if (start + i < keys.words) S1_CHECK(kKeys, keys.addr(start + i), 4);
         put(i, start + i < keys.words ? __ldg(keys.addr(start + i)) : 0u);
+      }
     }
   }
 

@@ -75,7 +75,15 @@ extern "C" int bacam_topk_stage1(
                                has_window, window);
   const dim3 grid(pl.key_tiles, pl.p.row_tiles, B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return s1::dispatch(W, pl, [&](auto w, auto kmax, auto rpl, auto lpg) {
+#ifdef BACAM_STAGE1_BOUNDS
+  const unsigned long long out = 4ull * B * R * ngroups * stage1_k;
+  const s1::Extent ext[s1::kNumTensors] = {
+      {q, 4ull * B * R * W}, {k, 4ull * B * S * W}, {nullptr, 0},
+      {q_pos, 4ull * B * R}, {kv_len, 4ull * B}, {vals, out}, {idx, out}};
+  if (const int e = s1::set_extents(ext, s)) return e;
+#endif
+  const int err = s1::dispatch(W, pl, [&](auto w, auto kmax, auto rpl,
+                                          auto lpg) {
     bacam_topk_stage1_kernel<decltype(w)::value, decltype(kmax)::value,
                              decltype(rpl)::value, decltype(lpg)::value>
         <<<grid, pl.threads, pl.smem, s>>>(
@@ -85,4 +93,5 @@ extern "C" int bacam_topk_stage1(
             static_cast<int32_t*>(idx), pl.p);
     return static_cast<int>(cudaGetLastError());
   });
+  return s1::finish_launch(err, s);
 }

@@ -9,6 +9,14 @@ module is imported: the kernel wrappers call :func:`load` at their first
 launch, and :func:`build` compiles several sources at once, one ``nvcc``
 process each.  :func:`entry` binds one C function of a library, and
 :func:`check` is the argument check every wrapper runs before a launch.
+
+Debug build: with ``REPRO_TORCH_STAGE1_BOUNDS=1`` in the environment the
+two BA-CAM stage-1 sources (``STAGE1_SOURCES``) are compiled with
+``-DBACAM_STAGE1_BOUNDS``: every global load and store of their kernels
+traps on an address outside its own tensor's extent (and every shared
+tile store outside the tile), and each launch is synchronized, so a fault
+reports on the launch that made it.  The flag is part of the library
+hash, so the debug and the normal libraries never mix.  Off by default.
 """
 
 from __future__ import annotations
@@ -25,8 +33,9 @@ from typing import Dict, Iterable
 
 import torch
 
-__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "NVCC_FLAGS", "build", "load",
-           "build_log", "entry", "check", "aligned"]
+__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "NVCC_FLAGS", "STAGE1_SOURCES",
+           "BOUNDS_ENV", "flags", "build", "load", "build_log", "entry",
+           "check", "aligned"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -34,6 +43,8 @@ SOURCES = ("bacam_decode", "paged_flash_decode", "bacam_topk", "bacam_mvm",
            "bitslice_vmm", "flash_attention", "flash_attention_f32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+STAGE1_SOURCES = ("bacam_decode", "bacam_topk")
+BOUNDS_ENV = "REPRO_TORCH_STAGE1_BOUNDS"
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[str, object] = {}
@@ -50,11 +61,19 @@ def _nvcc() -> str:
                        "bin/ on PATH); the CUDA kernels cannot be built")
 
 
+def flags(name: str) -> tuple:
+    """The ``nvcc`` flags of ``csrc/<name>.cu``: ``NVCC_FLAGS``, plus the
+    bounds check of the stage-1 sources when ``BOUNDS_ENV`` is 1."""
+    if name in STAGE1_SOURCES and os.environ.get(BOUNDS_ENV) == "1":
+        return NVCC_FLAGS + ("-DBACAM_STAGE1_BOUNDS",)
+    return NVCC_FLAGS
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(name)).encode())
     tag = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:12]}.so"
 
@@ -70,7 +89,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *flags(name), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())

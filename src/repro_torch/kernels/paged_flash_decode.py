@@ -20,11 +20,15 @@ gather.  A tensor on the CPU takes the plain version
 (``ref.paged_flash_decode_ref``); a CUDA tensor launches the kernel or
 raises.  ``launches`` counts wrapper calls that launched (one each, though
 the split design launches a merge kernel too), ``prefill_launches`` those
-with ``sq > 1``.
+with ``sq > 1``, ``binary_launches`` the binary-mode decode rows
+(``sq == 1``, the binary backend and the speculative drafter), and
+``sq_launches`` the ``sq > 1`` launches by chunk length (a speculative
+verify chunk has ``spec_k + 1`` rows).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -34,12 +38,15 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import paged_flash_decode_ref
 
 __all__ = ["paged_flash_decode", "paged_flash_decode_ref", "launch", "plan",
-           "DESIGNS", "launches", "prefill_launches"]
+           "DESIGNS", "launches", "prefill_launches", "binary_launches",
+           "sq_launches"]
 
 DESIGNS = ("split-KV", "chunk tiles", "SIMT")  # by the source's number
 
 launches = 0  # calls that launched (plain-version calls are not counted)
 prefill_launches = 0  # the sq > 1 subset of ``launches``
+binary_launches = 0  # the binary-mode sq == 1 subset of ``launches``
+sq_launches = collections.Counter()  # {sq: launches} of the sq > 1 subset
 
 
 @functools.lru_cache(maxsize=None)
@@ -72,11 +79,15 @@ def paged_flash_decode(q_rows, k_pages, v_pages, page_table, kv_len, q_pos, *,
         return paged_flash_decode_ref(
             q_rows, k_pages, v_pages, page_table, kv_len, q_pos, sq=sq,
             binary=binary, window=window)
-    global launches, prefill_launches
+    global launches, prefill_launches, binary_launches
     out = launch(q_rows, k_pages, v_pages, page_table, kv_len, q_pos, sq=sq,
                  binary=binary, window=window)
     launches += 1
-    prefill_launches += sq > 1
+    if sq > 1:
+        prefill_launches += 1
+        sq_launches[sq] += 1
+    elif binary:
+        binary_launches += 1
     return out
 
 

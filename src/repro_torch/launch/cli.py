@@ -12,7 +12,7 @@ __all__ = ["add_backend_args", "apply_backend_args"]
 def add_backend_args(ap: argparse.ArgumentParser):
     ap.add_argument("--backend", default=None,
                     help="attention backend (core/backend.py registry: "
-                         "dense | camformer)")
+                         "dense | binary | camformer | hybrid)")
     ap.add_argument("--layer-backends", default=None,
                     help="comma-separated per-layer backend policy, "
                          "cycled over the stack (e.g. dense,camformer)")

@@ -4,11 +4,14 @@
         --arch camformer-bert --backend camformer [--smoke] \
         [--layer-backends dense,camformer] [--mode overlap|sync] \
         [--prefill-slice 64] [--shared-prefix 32] [--no-stream] \
-        [--device cuda|cpu]
+        [--temperature 0.8 --top-k 40 --top-p 0.95] \
+        [--spec-k 3 --spec-backend binary] [--device cuda|cpu]
 
 Runs on the card by default; ``--device cpu`` runs the plain PyTorch
 path.  Weights are random, drawn from ``--seed`` (no weights ship with
-the repository).  Decoding is greedy.
+the repository).  ``--temperature 0`` (the default) decodes greedily;
+one sampling policy applies to every CLI request.  ``--spec-k N`` turns
+on self-speculative decoding with an ``--spec-backend`` drafter.
 """
 
 from __future__ import annotations
@@ -34,6 +37,9 @@ def main(argv=None):
                     help="seed of the random weights")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--shared-prefix", type=int, default=0,
@@ -53,6 +59,12 @@ def main(argv=None):
                          "(default) or the plain page-gather reference")
     ap.add_argument("--prefill-impl", default=None,
                     choices=("auto", "fused", "gather"))
+    ap.add_argument("--spec-k", type=int, default=None,
+                    help="self-speculative decoding: draft this many "
+                         "tokens per tick with the --spec-backend stack "
+                         "and verify them in one target pass (0 = off)")
+    ap.add_argument("--spec-backend", default=None,
+                    help="drafter attention backend (default binary)")
     ap.add_argument("--no-stream", action="store_true",
                     help="suppress per-token output, print only summaries")
     args = ap.parse_args(argv)
@@ -67,13 +79,16 @@ def main(argv=None):
                       n_pages=args.n_pages, mode=args.mode,
                       prefill_slice=args.prefill_slice,
                       paged_impl=args.paged_impl,
-                      prefill_impl=args.prefill_impl, device=args.device)
+                      prefill_impl=args.prefill_impl, spec_k=args.spec_k,
+                      spec_backend=args.spec_backend, device=args.device)
     del params
     layout = cfg.uniform_backend or ",".join(cfg.layer_backends)
     print(f"paged KV cache [{layout}] on {eng.device}: {eng.kv.n_pages} "
           f"pages x {eng.kv.page_size} tokens "
           f"(page table {eng.kv.table.shape})")
-    sampling = SamplingParams(max_new=args.max_new)
+    sampling = SamplingParams(max_new=args.max_new,
+                              temperature=args.temperature, top_k=args.top_k,
+                              top_p=args.top_p)
     rng = np.random.default_rng(7)
     shared = list(range(1, args.shared_prefix + 1))
     for i in range(args.requests):
@@ -90,6 +105,10 @@ def main(argv=None):
           f"({eng.ticks / max(wall, 1e-9):.1f} ticks/s), "
           f"{eng.readbacks} readbacks, host blocked "
           f"{eng.blocked_s / max(wall, 1e-9):.0%}")
+    if eng.spec_k:
+        print(f"speculation: k={eng.spec_k}, "
+              f"{eng.spec_accepted}/{eng.spec_proposed} drafts accepted "
+              f"({eng.spec_acceptance:.0%})")
     if eng.tick_errors:
         print(f"{eng.tick_errors} tick errors contained "
               f"(last: {eng.last_error})")

@@ -9,4 +9,4 @@ from repro_torch.models.transformer import (ModelDef,  # noqa: F401
                                             lm_cache_specs, lm_decode,
                                             lm_decode_paged, lm_page_specs,
                                             lm_prefill, lm_prefill_paged,
-                                            make_model_def)
+                                            lm_verify_paged, make_model_def)

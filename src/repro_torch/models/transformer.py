@@ -20,7 +20,8 @@ from repro_torch.models.attention import attention_block
 
 __all__ = ["ModelDef", "make_model_def", "dtype_of", "lm_cache_specs",
            "lm_page_specs", "init_pools", "lm_hidden", "lm_prefill",
-           "lm_decode", "lm_prefill_paged", "lm_decode_paged"]
+           "lm_decode", "lm_prefill_paged", "lm_verify_paged",
+           "lm_decode_paged"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -97,8 +98,8 @@ def lm_hidden(params, tokens, cfg, *, positions=None, caches, kv_len=None,
 
 
 def _head_logits(params, last, cfg):
-    """Vocabulary logits (B, V_pad) float32 for final hidden states
-    (B, d): computed in the compute type, vocab pad columns at -1e9."""
+    """Vocabulary logits (..., V_pad) float32 for final hidden states
+    (..., d): computed in the compute type, vocab pad columns at -1e9."""
     dt = last.dtype
     if cfg.tie_embeddings:
         head = params["embed"]["tok"].to(dt).T
@@ -157,6 +158,21 @@ def lm_prefill_paged(params, batch, caches, page_table, cfg):
                            x.shape[1] - 1).long()
     last = x[torch.arange(x.shape[0], device=x.device), last_row]
     return _head_logits(params, last, cfg), caches
+
+
+def lm_verify_paged(params, batch, caches, page_table, cfg):
+    """Speculative-decode verification over the paged Sq > 1 path.
+
+    The contract of ``lm_prefill_paged``, but returns the logits of EVERY
+    suffix position, (B, S, V_pad): row j is the target distribution of
+    the token after position offsets + j.  Runs under ``spec_verify``
+    (stateful backends score each column with its own sequential
+    ``k_scale`` and stash the chunk's key means) and never slices the
+    k + 1 tokens into prefill chunks.
+    """
+    cfg = cfg.replace(spec_verify=True, prefill_chunk=0)
+    x, caches = _paged_suffix_hidden(params, batch, caches, page_table, cfg)
+    return _head_logits(params, x, cfg), caches
 
 
 def lm_prefill(params, batch, caches, cfg):

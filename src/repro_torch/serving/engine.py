@@ -7,10 +7,13 @@ The engine mirrors the reference package's ``serving/engine.py``:
      preemption, finish detection and page planning; ``plan_tick()``
      emits a ``TickPlan``.
   2. the device step — one plain PyTorch function per tick
-     (``_prefill_step`` / ``_decode_step``): the model forward through
-     every layer's ``backend.paged_decode`` (paged CUDA kernels on the
-     card), the in-place pool writes, and greedy sampling.  The sampled
-     ids, one (B,) int32 tensor, are the only per-tick readback; the
+     (``_prefill_step`` / ``_decode_step``, or the speculative step of
+     serving/speculate.py): the model forward through every layer's
+     ``backend.paged_decode`` (paged CUDA kernels on the card), the
+     in-place pool writes, and keyed sampling (``sample_step_keyed``;
+     ticks whose rows are all greedy take the argmax).  The sampled ids,
+     one (B,) int32 tensor — or the (B, spec_k + 2) speculative pack of
+     samples and accepted counts — are the only per-tick readback; the
      decode step's input tokens come from the on-device token buffer of
      the previous tick.
   3. the loop — ``mode="sync"`` reads each tick's tokens right away;
@@ -19,11 +22,16 @@ The engine mirrors the reference package's ``serving/engine.py``:
      of its ids (into pinned memory) behind its own kernels and records
      an event, so reading tick t waits for tick t only.  Host visibility
      of token values is deferred one tick; everything value-independent
-     is planned as in sync mode, so both modes give the same tokens.
+     is planned as in sync mode, and sampling is keyed by
+     ``(seed, rid, index)``, so both modes give the same tokens.
 
-Only greedy decoding is ported: a request with ``temperature > 0`` is
-refused at ``submit`` (the keyed sampler is later work), and
-``spec_k > 0`` / ``tp > 1`` are refused by the constructor.
+Self-speculative decoding (``spec_k > 0``): a drafter stack (the same
+weights, every layer on ``spec_backend``) keeps its own pools on the same
+page ids, forked with the target's on every COW fork; each decode tick
+drafts ``spec_k`` tokens per slot and verifies them in one target pass
+(serving/speculate.py), and ``Scheduler.resolve_spec`` settles the
+accepted prefix.  Tensor parallelism (``tp > 1``) is not ported and is
+refused by the constructor.
 
 Crash containment is the reference's: a failed tick finishes its
 in-flight requests with ``finish_reason="error"`` and counts in
@@ -46,6 +54,7 @@ from repro_torch.models.transformer import (dtype_of, init_pools,
                                             lm_decode_paged, lm_page_specs,
                                             lm_prefill_paged)
 from repro_torch.serving import sampler as S
+from repro_torch.serving import speculate
 from repro_torch.serving.faults import NO_FAULTS, FaultPlan
 from repro_torch.serving.kv_cache import PagedKVCache, pages_for
 from repro_torch.serving.request import (Request, RequestOutput, RequestState,
@@ -88,8 +97,10 @@ class _InFlight(NamedTuple):
 
     prefill_tok: Optional[_Readback]  # (B,) sampled first tokens
     prefill_emit: Tuple[Emit, ...]
-    decode_tok: Optional[_Readback]  # (B,) sampled decode tokens
+    decode_tok: Optional[_Readback]  # (B,) sampled decode tokens, or the
+    #                                  (B, m + 1) spec pack (samples ++ n_valid)
     decode_emit: Tuple[Emit, ...]
+    spec: bool = False  # decode_tok is a speculative multi-token pack
 
     @property
     def empty(self) -> bool:
@@ -103,12 +114,10 @@ class ServeEngine:
                  mode: str = "overlap", prefill_slice: Optional[int] = None,
                  paged_impl: Optional[str] = None,
                  prefill_impl: Optional[str] = None,
-                 spec_k: Optional[int] = None, tp: int = 1,
+                 spec_k: Optional[int] = None,
+                 spec_backend: Optional[str] = None, tp: int = 1,
                  max_queue: Optional[int] = None,
                  faults: Optional[FaultPlan] = None, device="cuda"):
-        if spec_k:
-            raise NotImplementedError(
-                "speculative decoding (spec_k > 0) is not ported")
         if tp != 1:
             raise NotImplementedError("tensor parallelism (tp > 1) is not "
                                       "ported")
@@ -116,9 +125,11 @@ class ServeEngine:
             cfg = cfg.replace(paged_impl=paged_impl)
         if prefill_impl is not None:
             cfg = cfg.replace(prefill_impl=prefill_impl)
-        if cfg.spec_k:
-            raise NotImplementedError(
-                "speculative decoding (cfg.spec_k > 0) is not ported")
+        if spec_k is not None or spec_backend is not None:
+            cfg = cfg.replace(
+                spec_k=cfg.spec_k if spec_k is None else spec_k,
+                spec_backend=(cfg.spec_backend if spec_backend is None
+                              else spec_backend))
         if mode not in ("sync", "overlap"):
             raise ValueError(f"mode must be 'sync' or 'overlap', got {mode!r}")
         self.device = resolve_device(device)
@@ -138,12 +149,24 @@ class ServeEngine:
         self.faults = NO_FAULTS if faults is None else faults
         self.kv = PagedKVCache(n_pages, page_size, max_batch, per_seq,
                                faults=self.faults)
+        self.spec_k = cfg.spec_k
         self.sched = Scheduler(
             self.kv, max_batch=max_batch, max_len=max_len, seed=seed,
             prefix_sharing=prefix_sharing, prefill_slice=prefill_slice,
-            prefill_bucket=chunk or PREFILL_BUCKET, max_queue=max_queue)
+            prefill_bucket=chunk or PREFILL_BUCKET, spec_k=self.spec_k,
+            max_queue=max_queue)
         self.caches = init_pools(
             lm_page_specs(cfg, n_pages, page_size, max_batch), self.device)
+        # speculative decoding: the drafter stack keeps its OWN pools on
+        # the SAME page ids, so admission, COW forks and rollback are
+        # planned once for both
+        self.draft_caches = None
+        self._draft_cfg = None
+        if self.spec_k:
+            self._draft_cfg = speculate.draft_config(cfg)
+            self.draft_caches = init_pools(
+                lm_page_specs(self._draft_cfg, n_pages, page_size,
+                              max_batch), self.device)
         # on-device token state: the decode step's input tokens are the
         # previous step's output, never a host round-trip
         self._zero_tok = torch.zeros((max_batch,), dtype=torch.int32,
@@ -162,10 +185,6 @@ class ServeEngine:
     # scheduler delegation
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> int:
-        if req.sampling.temperature > 0:
-            raise NotImplementedError(
-                "temperature > 0 needs the keyed sampler, which is not "
-                "ported; only greedy requests are served")
         return self.sched.submit(req)
 
     def cancel(self, rid: int) -> Optional[RequestOutput]:
@@ -191,6 +210,25 @@ class ServeEngine:
     def prefill_ticks(self) -> int:
         return self.sched.prefill_ticks
 
+    @property
+    def preemptions(self) -> int:
+        return self.sched.preemptions
+
+    @property
+    def spec_proposed(self) -> int:
+        """Draft tokens proposed by the speculative drafter stack."""
+        return self.sched.spec_proposed
+
+    @property
+    def spec_accepted(self) -> int:
+        """Proposed draft tokens the target stack verified and kept."""
+        return self.sched.spec_accepted
+
+    @property
+    def spec_acceptance(self) -> float:
+        """spec_accepted / spec_proposed (0.0 before any speculation)."""
+        return self.sched.spec_acceptance
+
     # ------------------------------------------------------------------
     # the device step: one plain function per tick
     # ------------------------------------------------------------------
@@ -202,15 +240,29 @@ class ServeEngine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def _prefill_step(self, tokens, lens, offsets, scale_base, pt):
+    @staticmethod
+    def _sample(logits, hot, samp):
+        """The tick's samples: keyed draws when any row is hot (``samp`` =
+        keys, index, temps, top_ks, top_ps on the device), else the
+        argmax."""
+        return S.sample_step_keyed(logits, *samp) if hot else S.greedy(logits)
+
+    def _prefill_step(self, tokens, lens, offsets, scale_base, pt, hot,
+                      samp):
         batch = {"tokens": tokens, "lens": lens, "offsets": offsets,
                  "scale_base": scale_base}
+        if self.spec_k:
+            fn = speculate.build_spec_prefill(self.cfg, self._draft_cfg, hot)
+            first, self.caches, self.draft_caches = fn(
+                self.params, batch, self.caches, self.draft_caches, pt,
+                *samp)
+            return first
         logits, self.caches = lm_prefill_paged(self.params, batch,
                                                self.caches, pt, self.cfg)
-        return S.greedy(logits)
+        return self._sample(logits, hot, samp)
 
     def _decode_step(self, tok_prev, fresh, fresh_mask, live_mask, pos,
-                     kv_len, pt, base):
+                     kv_len, pt, base, hot, samp):
         # merge the token state on the device: rows that finished prefill
         # THIS tick take their fresh first token, continuing rows the
         # previous step's output, inert rows 0
@@ -220,7 +272,18 @@ class ServeEngine:
         logits, self.caches = lm_decode_paged(
             self.params, tokens, pos, kv_len, self.caches, pt, self.cfg,
             base=base)
-        return S.greedy(logits)
+        return self._sample(logits, hot, samp)
+
+    def _spec_step(self, fresh, fresh_mask, live_mask, pos, n_tok, pt, base,
+                   hot, samp):
+        """One speculative tick; returns the (B, m + 1) pack and updates
+        the token buffer and both pools."""
+        fn = speculate.build_spec_step(self.cfg, self._draft_cfg,
+                                       self.spec_k + 1, hot)
+        packed, self._tok_buf, self.caches, self.draft_caches = fn(
+            self.params, self._tok_buf, fresh, fresh_mask, live_mask, pos,
+            n_tok, self.caches, self.draft_caches, pt, base, *samp)
+        return packed
 
     def _start_readback(self, tok: torch.Tensor) -> _Readback:
         if tok.is_cuda:
@@ -237,30 +300,50 @@ class ServeEngine:
         self.faults.raise_if("step.error")  # chaos: the step dies
         for src, dst in plan.forks:  # COW copies BEFORE any write
             self.caches = _copy_pool_page(self.caches, int(src), int(dst))
+            if self.draft_caches is not None:  # same page ids: fork both
+                self.draft_caches = _copy_pool_page(self.draft_caches,
+                                                    int(src), int(dst))
+        pf, dc = plan.prefill, plan.decode
+        # the per-slot sampling rows, on the device only when some row
+        # samples at temperature
+        keys = temps = top_ks = top_ps = None
+        if (pf is not None and pf.hot) or (dc is not None and dc.hot):
+            keys, temps, top_ks, top_ps = (self._h2d(x) for x in (
+                plan.keys.astype(np.int64), plan.temps, plan.top_ks,
+                plan.top_ps))
+
+        def samp(index, need=True):  # sample_step_keyed's row arguments
+            return (keys, self._h2d(index) if need else None, temps, top_ks,
+                    top_ps)
+
         prefill_tok = None
         fresh = self._zero_tok
-        pf = plan.prefill
         if pf is not None:
-            if pf.hot:
-                raise NotImplementedError("temperature > 0 is not ported")
             first = self._prefill_step(
                 self._h2d(pf.tokens), self._h2d(pf.lens),
                 self._h2d(pf.offsets), self._h2d(pf.scale_base),
-                self._h2d(pf.table))
+                self._h2d(pf.table), pf.hot, samp(pf.sample_index, pf.hot))
             if pf.emit:
                 fresh = first
                 prefill_tok = self._start_readback(first)
-        dc = plan.decode
         decode_tok = None
         if dc is not None:
-            if dc.hot:
-                raise NotImplementedError("temperature > 0 is not ported")
-            nxt = self._decode_step(
-                self._tok_buf, fresh, self._h2d(dc.fresh),
-                self._h2d(dc.live), self._h2d(dc.pos), self._h2d(dc.kv_len),
-                self._h2d(dc.table), self._h2d(dc.base))
-            self._tok_buf = nxt
-            decode_tok = self._start_readback(nxt)
+            args = (self._h2d(dc.fresh), self._h2d(dc.live),
+                    self._h2d(dc.pos))
+            if self.spec_k:
+                # the spec step offsets the index per draft step even
+                # when greedy, so it always takes it
+                packed = self._spec_step(
+                    fresh, *args, self._h2d(dc.n_tok), self._h2d(dc.table),
+                    self._h2d(dc.base), dc.hot, samp(dc.sample_index))
+                decode_tok = self._start_readback(packed)
+            else:
+                nxt = self._decode_step(
+                    self._tok_buf, fresh, *args, self._h2d(dc.kv_len),
+                    self._h2d(dc.table), self._h2d(dc.base), dc.hot,
+                    samp(dc.sample_index, dc.hot))
+                self._tok_buf = nxt
+                decode_tok = self._start_readback(nxt)
             self.ticks += 1
         elif pf is not None and pf.emit:
             # prefill completed with no decode tick in the same plan: fold
@@ -270,7 +353,8 @@ class ServeEngine:
             self._tok_buf = torch.where(self._h2d(mask), fresh,
                                         self._tok_buf)
         return _InFlight(prefill_tok, pf.emit if pf else (),
-                         decode_tok, dc.emit if dc else ())
+                         decode_tok, dc.emit if dc else (),
+                         bool(self.spec_k and dc is not None))
 
     def _read(self, rb: _Readback) -> np.ndarray:
         """THE host<->device readback (token ids only); instrumented so
@@ -288,19 +372,38 @@ class ServeEngine:
 
     def _collect(self, inflight: _InFlight) -> List[RequestOutput]:
         """Read a dispatched tick's sampled ids and surface them (first
-        prefill samples, then decode samples)."""
+        prefill samples, then decode samples).
+
+        A speculative tick reads ONE packed (B, m + 1) array — per-slot
+        target samples plus the accepted count — and settles each slot's
+        emits through ``Scheduler.resolve_spec`` (accepted prefix
+        ingested, rejected suffix dropped and rolled back)."""
         events: List[RequestOutput] = []
         self._settling = list(inflight.prefill_emit + inflight.decode_emit)
-        for tok, emits in ((inflight.prefill_tok, inflight.prefill_emit),
-                           (inflight.decode_tok, inflight.decode_emit)):
-            if not emits:
-                continue
-            vals = self._read(tok)
-            for e in emits:
+        if inflight.prefill_emit:
+            vals = self._read(inflight.prefill_tok)
+            for e in inflight.prefill_emit:
                 out = self.sched.ingest(e, int(vals[e.slot]))
                 self._settling.pop(0)
                 if out is not None:
                     events.append(out)
+        if not inflight.decode_emit:
+            return events
+        vals = self._read(inflight.decode_tok)
+        if inflight.spec:
+            groups: "dict[int, List[Emit]]" = {}
+            for e in inflight.decode_emit:  # slot-major, consecutive
+                groups.setdefault(e.slot, []).append(e)
+            for slot, ems in groups.items():  # insertion == settle order
+                events.extend(self.sched.resolve_spec(
+                    slot, tuple(ems), vals[slot], int(vals[slot, -1])))
+                del self._settling[:len(ems)]
+            return events
+        for e in inflight.decode_emit:
+            out = self.sched.ingest(e, int(vals[e.slot]))
+            self._settling.pop(0)
+            if out is not None:
+                events.append(out)
         return events
 
     # ------------------------------------------------------------------

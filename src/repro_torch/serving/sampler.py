@@ -1,10 +1,15 @@
 """Token samplers for the serving engine.
 
-The engine of this port samples greedily; the keyed categorical draw of
-the reference (threefry ``fold_in`` per request and token index) is not
-ported yet, so requests with ``temperature > 0`` are refused at submit.
-``apply_top_k`` / ``apply_top_p`` are the row-wise logit filters, and
-``request_key`` is the host-side per-request key the scheduler records.
+``sample_step_keyed`` is the engine's per-tick entry point: every row of
+the batch carries its own temperature / top-k / top-p, its own raw rng
+key and its generated-token index, and draws from ``fold_in(key,
+index)``, so a sampled id is a pure function of ``(seed, rid, index)``
+whatever tick, slot or batch produced it.  The draws are the reference's
+``jax.random.categorical`` bit for bit (``serving/prng.py``).  Keys are
+``(B, 2)`` int64 tensors holding the uint32 words of
+``request_key``.  ``sample_step`` is the single-key variant and
+``sample`` the single-policy one; ``apply_top_k`` / ``apply_top_p`` are
+the row-wise logit filters.
 """
 
 from __future__ import annotations
@@ -12,7 +17,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["greedy", "request_key", "apply_top_k", "apply_top_p"]
+from repro_torch.serving import prng
+
+__all__ = ["greedy", "sample", "sample_step", "sample_step_keyed",
+           "request_key", "apply_top_k", "apply_top_p"]
 
 _MASKED = -1e9  # filtered logits (matches the vocab-padding mask value)
 
@@ -55,3 +63,59 @@ def request_key(seed: int, rid: int) -> np.ndarray:
     """Deterministic per-request raw key data, derived on the host."""
     return np.random.SeedSequence(entropy=(int(seed), int(rid))).generate_state(
         2, dtype=np.uint32)
+
+
+def _draw_flat(key, z):
+    """``jax.random.categorical(key, z)`` for z (B, V) under ONE raw key
+    (2,): the noise covers the flattened (B * V) shape."""
+    b, v = z.shape
+    g = prng.gumbel(key, b * v).reshape(b, v)
+    return torch.argmax(g + z, dim=-1).to(torch.int32)
+
+
+def sample(logits: torch.Tensor, rng: torch.Tensor, *,
+           temperature: float = 1.0, top_k: int = 0,
+           top_p: float = 1.0) -> torch.Tensor:
+    """Single-policy sampling (python scalars). logits: (B, V); rng: a
+    raw key (2,) int64."""
+    if temperature <= 0.0:
+        return greedy(logits)
+    z = logits / temperature
+    if top_k:
+        z = apply_top_k(z, top_k)
+    if top_p < 1.0:
+        z = apply_top_p(z, top_p)
+    return _draw_flat(rng, z)
+
+
+def _filtered(logits, temperature, top_k, top_p):
+    """(temperature > 0 mask (B,), filtered tempered logits (B, V))."""
+    t = torch.as_tensor(temperature, dtype=torch.float32,
+                        device=logits.device)
+    safe_t = torch.where(t > 0, t, torch.ones_like(t))[:, None]
+    return t > 0, apply_top_p(apply_top_k(logits / safe_t, top_k), top_p)
+
+
+def sample_step(logits: torch.Tensor, rng: torch.Tensor, temperature,
+                top_k, top_p) -> torch.Tensor:
+    """Per-row sampling for one tick under one raw key (2,).
+
+    logits: (B, V); temperature/top_k/top_p: (B,).  Rows with
+    temperature <= 0 are greedy; the rest filter, then draw at their own
+    temperature.
+    """
+    hot, z = _filtered(logits, temperature, top_k, top_p)
+    return torch.where(hot, _draw_flat(rng, z), greedy(logits))
+
+
+def sample_step_keyed(logits, keys, index, temperature, top_k, top_p):
+    """Per-row keyed sampling for one engine tick.
+
+    logits: (B, V); keys: (B, 2) int64 raw per-request keys; index: (B,)
+    generated-token index being sampled; temperature/top_k/top_p: (B,).
+    Rows with temperature <= 0 are greedy; the rest filter, then draw
+    categorically from ``fold_in(key, index)``.
+    """
+    hot, z = _filtered(logits, temperature, top_k, top_p)
+    c = prng.categorical(prng.fold_in(keys, index), z).to(torch.int32)
+    return torch.where(hot, c, greedy(logits))

@@ -401,3 +401,153 @@ def test_contiguous_path_launches_kernels_never_plain(cuda, monkeypatch):
         # decode rows hold one position each, also with GQA rows folded
         assert btk.prefill_launches - chunks0 == (2 * n if chunk else 0)
         assert torch.isfinite(logits).all()
+
+
+def test_keyed_draws_on_card_equal_cpu(cuda):
+    """The keyed sampler on a CUDA logits tensor gives the draws (and the
+    threefry bits) of the same call on its CPU copy."""
+    from repro_torch.serving import prng
+    from repro_torch.serving import sampler as S
+
+    rng = np.random.default_rng(0)
+    b, v = 16, 30522
+    logits = (rng.standard_normal((b, v)) * 3).astype(np.float32)
+    keys = rng.integers(0, 2**32, (b, 2), dtype=np.uint64).astype(np.int64)
+    idx = rng.integers(0, 1000, b).astype(np.int32)
+    temps = np.where(np.arange(b) % 4 == 1, 0.0, 0.9).astype(np.float32)
+    top_ks = rng.choice([0, 1, 40], b).astype(np.int32)
+    top_ps = rng.choice([1.0, 0.95], b).astype(np.float32)
+    args = [torch.from_numpy(x) for x in (logits, keys, idx, temps, top_ks,
+                                          top_ps)]
+    want = S.sample_step_keyed(*args)
+    got = S.sample_step_keyed(*[x.to(cuda) for x in args])
+    assert torch.equal(got.cpu(), want)
+    fold = prng.fold_in(args[1], args[2])
+    assert torch.equal(prng.random_bits(fold.to(cuda), v).cpu(),
+                       prng.random_bits(fold, v))
+
+
+def _stateful_pools(rng, backend, n_pages, hkv, page, d, b, spec_k):
+    pools = {"v_pages": rng.standard_normal((n_pages, hkv, page, d)),
+             "k_scale": rng.uniform(0.5, 1.5, (b, hkv))}
+    if backend in ("binary", "hybrid"):
+        pools["k_pages"] = rng.standard_normal((n_pages, hkv, page, d))
+    if backend == "hybrid":
+        pools["kp_pages"] = rng.integers(-2**31, 2**31,
+                                         (n_pages, hkv, page, d // 32))
+    if spec_k:
+        pools["k_means"] = np.zeros((b, hkv, spec_k + 1))
+    return {k: torch.from_numpy(x.astype(np.int32 if k == "kp_pages"
+                                         else np.float32))
+            for k, x in pools.items()}
+
+
+@pytest.mark.parametrize("backend", ["binary", "hybrid"])
+@pytest.mark.parametrize("sq,verify", [(1, False), (12, False), (4, True)])
+def test_stateful_paged_decode_on_card_matches_plain(cuda, backend, sq,
+                                                     verify):
+    """``paged_decode`` of ``binary`` and ``hybrid`` on the card (the
+    kernels) against the same call on the CPU (the plain versions):
+    outputs and float pools within 1e-5, packed keys bit-exact, and the
+    launch went to the kernel the path names."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.backend import get_backend
+
+    spec_k = 3 if verify else 0
+    cfg = smoke_config("mistral-nemo-12b", attn_backend=backend, n_heads=4,
+                       n_kv_heads=2, spec_k=spec_k, spec_verify=verify)
+    b, hkv, h, d, page, np_ = 4, 2, 4, 32, 8, 5
+    n_pages = 1 + b * np_
+    rng = np.random.default_rng(sq)
+    pools = _stateful_pools(rng, backend, n_pages, hkv, page, d, b, spec_k)
+    table = _table(rng, b, np_, [40] * 3 + [0], page)
+    offsets = np.array([0, 4, 8, 0], np.int32) if sq > 1 else \
+        np.array([11, 20, 7, 0], np.int32)
+    kv_len = np.where(np.arange(b) < 3, offsets + sq, 0).astype(np.int32)
+    kv_len[1] -= sq // 2  # padding rows past kv_len
+    pos = (offsets[:, None] + np.arange(sq)[None]).astype(np.int32)
+    q = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, sq, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, sq, d)).astype(np.float32)
+    bk = get_backend(backend)
+    outs = {}
+    counts = (pfd.launches, pfd.prefill_launches, pfd.binary_launches,
+              bdec.launches)
+    for dev in ("cpu", cuda):
+        p = {name: x.clone().to(dev) for name, x in pools.items()}
+        out, p = bk.paged_decode(
+            *_on(dev, q), p, *_on(dev, k, v, pos, table, kv_len), cfg,
+            base=torch.zeros(b, dtype=torch.int32, device=dev))
+        outs[str(dev)] = (out.cpu(), {n: x.cpu() for n, x in p.items()})
+    torch.cuda.synchronize()
+    (cpu_out, cpu_p), (dev_out, dev_p) = outs["cpu"], outs[str(cuda)]
+    live = torch.zeros((b, h, sq), dtype=torch.bool)
+    for i in range(b):
+        live[i, :, : max(0, int(kv_len[i] - offsets[i]))] = True
+    torch.testing.assert_close(dev_out[live], cpu_out[live], rtol=1e-5,
+                               atol=1e-5)
+    for name, x in cpu_p.items():
+        if name == "kp_pages":
+            assert torch.equal(dev_p[name][1:], x[1:])
+        elif name.endswith("_pages"):
+            torch.testing.assert_close(dev_p[name][1:], x[1:])
+        else:
+            torch.testing.assert_close(dev_p[name], x, rtol=1e-5, atol=1e-6)
+    flash, chunk, binary, cam = (now - then for now, then in zip(
+        (pfd.launches, pfd.prefill_launches, pfd.binary_launches,
+         bdec.launches), counts))
+    if backend == "binary":  # every row through the flash kernel
+        assert (flash, chunk, binary, cam) == (1, sq > 1, sq == 1, 0)
+    elif sq == 1:  # hybrid decode rows: the CAM kernel
+        assert (flash, cam) == (0, 1)
+    else:  # hybrid chunks: flash-scored; verify chunks: CAM, gathered
+        assert (flash, chunk, binary, cam) == ((0, 0, 0, 0) if verify
+                                               else (1, 1, 0, 0))
+
+
+def test_spec_engine_launch_counts_exact(cuda, monkeypatch):
+    """A small speculative engine on the card (dense target, binary
+    drafter, spec_k = 2, temperature 0.9): every decode tick launches the
+    binary decode kernel m = 3 times and the verify chunk once per layer,
+    each prefill tick one chunk per layer for each stack, no plain
+    version runs, and the streams equal plain decode's."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import Request, SamplingParams, ServeEngine
+
+    cfg = smoke_config("camformer-bert", attn_backend="dense")
+    params = init_params(cfg, device=cuda, seed=0)
+    streams = {}
+    for spec_k in (2, 0):
+        eng = ServeEngine(cfg, params, max_batch=3, max_len=64, page_size=8,
+                          mode="overlap", spec_k=spec_k, device=cuda)
+        reqs = [Request(prompt=[5 + i, 9, 2, 4 + i, 7][: 3 + i],
+                        sampling=SamplingParams(max_new=9, temperature=0.9,
+                                                top_k=40), rid=i)
+                for i in range(3)]
+        if spec_k:
+            def plain(*a, **k):
+                raise AssertionError("a plain version ran on the card")
+
+            monkeypatch.setattr(pfd, "paged_flash_decode_ref", plain)
+        before = (pfd.launches, pfd.binary_launches, pfd.sq_launches[3],
+                  pfd.prefill_launches)
+        for _ in eng.stream(*reqs):
+            pass
+        monkeypatch.undo()
+        torch.cuda.synchronize()
+        streams[spec_k] = [r.tokens for r in reqs]
+        if not spec_k:
+            continue
+        n, m = cfg.n_layers, spec_k + 1
+        flash, binary, verify, chunks = (now - then for now, then in zip(
+            (pfd.launches, pfd.binary_launches, pfd.sq_launches[3],
+             pfd.prefill_launches), before))
+        assert eng.tick_errors == 0, eng.last_error
+        assert binary == eng.ticks * m * n
+        assert verify == eng.ticks * n
+        assert chunks == verify + 2 * eng.prefill_ticks * n
+        assert flash == binary + chunks
+        assert eng.readbacks == eng.ticks + eng.prefill_ticks
+        assert 0 < eng.spec_accepted <= eng.spec_proposed
+    assert streams[2] == streams[0]

@@ -242,18 +242,13 @@ def test_single_readback_per_decode_tick():
     assert eng.readbacks == 1 + eng.ticks
 
 
-def test_temperature_raises_at_submit():
+def test_tensor_parallel_raises_at_construction():
+    """tp > 1 is not ported: the constructor refuses it.  (Temperature
+    and spec_k > 0 are served; tests/test_torch_engine_sampling.py and
+    tests/test_torch_spec.py hold them against the reference.)"""
     cfg = t_smoke("camformer-bert", attn_backend="camformer")
     from repro_torch.models import init_params
 
-    eng = TEngine(cfg, init_params(cfg, device="cpu"), max_batch=2,
-                  max_len=32, page_size=8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.submit(TRequest(prompt=[1, 2, 3],
-                            sampling=TSampling(temperature=0.8)))
-    assert not eng.has_work  # refused before reaching the scheduler
-    with pytest.raises(NotImplementedError):
-        TEngine(cfg, init_params(cfg, device="cpu"), spec_k=2, device="cpu")
     with pytest.raises(NotImplementedError):
         TEngine(cfg, init_params(cfg, device="cpu"), tp=2, device="cpu")
 
