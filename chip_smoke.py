@@ -43,7 +43,18 @@ Phases, in order (each raises on failure; nothing is caught):
      in a 1024-token cache: (a) whole-prompt prefill and 127 greedy
      decode steps, (b) ``prefill_chunk=128`` (7 chunks) and 31 steps,
      checking each kernel's launch count and that no plain version ran
-     on the card.
+     on the card;
+  7. the MoE and VLM families: ``granite-moe-3b-a800m`` at full width
+     and depth in bf16 served like phase 5 on ``camformer`` and
+     ``dense``; ``llava-next-mistral-7b`` at full width cut to 4 layers,
+     f32, through the contiguous steps with 576 patch embeddings and 320
+     text tokens (kernel 4 for the prefill, kernel 3 for 16 decode
+     steps), held against its plain route on the card and on the CPU.
+
+Phase 3 also holds kernels 1, 2 (dense and binary) and 2b at granite's
+GQA width (8 kv heads, G = 3); phase 4 also runs granite smoke at G = 3
+card against CPU, and one full-width granite ``apply_moe`` layer card
+against CPU (routing identical, outputs within 1e-5).
 
 The line before the last is the ``kernels`` JSON object (one row per
 kernel and shape: the paged flash and contiguous stage-1 kernels have a
@@ -479,6 +490,85 @@ def kernel_phase(flush):
     return rows
 
 
+# granite-moe-3b-a800m's attention: 24 heads on 8 kv heads, head_dim 64
+GQA3_HKV, GQA3_G = 8, 3
+
+
+def gqa3_kernel_phase():
+    """Kernels 1, 2 (and its binary mode) and 2b against their plain
+    versions at granite's GQA width (8 kv heads, G = 3 rows a kv head,
+    head_dim 64) on the slice's pools (8 slots, 64-token pages x 16):
+    decode rows at the mid-decode kv_len and at ragged + inert kv_len,
+    and the 384-row prefill chunk (R = 3 x 384, row r at q_pos + r % 384).
+    Returns {case: max abs err} (0 for the bit-exact stage-1 checks)."""
+    from repro_torch.core.bacam import pack_bits
+    from repro_torch.kernels import bacam_decode as bdec
+    from repro_torch.kernels import paged_flash_decode as pfd
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 3)
+    b, hkv, g, d, page, np_ = 8, GQA3_HKV, GQA3_G, 64, 64, 16
+    lens = torch.tensor(SLICE_LENS, dtype=torch.int32)
+    ragged = torch.tensor([1024, 700, 513, 64, 1, 0, 300, 0],
+                          dtype=torch.int32)
+    errs = {}
+    for label, kv_len in (("mid-decode", lens + MID_DECODE),
+                          ("ragged", ragged)):
+        q_pos = torch.clamp(kv_len - 1, min=0)
+        kp, table = ragged_pool(gen, b, hkv, page, np_, kv_len,
+                                torch.float32, d)
+        q = pack_bits(torch.randn((b, hkv, g, d), generator=gen))
+        a = [t.to(dev).contiguous()
+             for t in (q, pack_bits(kp), table, kv_len, q_pos)]
+        got = bdec.bacam_paged_topk_stage1(*a, d=d)
+        want = bdec.bacam_paged_topk_ref(a[0], a[1], a[2], a[3], d,
+                                         q_pos=a[4])
+        n_valid, n_dead = check_candidates(
+            f"bacam_paged_topk_stage1 G=3 {label}", got, want, 16, 2)
+        errs[f"bacam_paged_topk_stage1 G=3 {label}"] = 0.0
+        log(f"bacam_paged_topk_stage1 G=3 (R = 3 rows on {hkv} kv heads) "
+            f"{label} kv_len {kv_len.tolist()}: bit-exact ({n_valid} valid "
+            f"candidates, {n_dead} fully masked groups at base + s)")
+        for binary in (False, True):
+            kpool, table = ragged_pool(gen, b, hkv, page, np_, kv_len,
+                                       torch.bfloat16, d)
+            vpool, _ = ragged_pool(gen, b, hkv, page, np_, kv_len,
+                                   torch.bfloat16, d)
+            qr = torch.randn((b, hkv, g, d), generator=gen) * d**-0.5
+            if binary:
+                qr = torch.where(qr > 0, 1.0, -1.0) * d**-0.5
+            a = [t.to(dev).contiguous()
+                 for t in (qr, kpool, vpool, table, kv_len, q_pos)]
+            got = pfd.paged_flash_decode(*a, binary=binary)
+            want = pfd.paged_flash_decode_ref(*a, binary=binary)
+            name = (f"paged_flash_decode G=3{' binary' if binary else ''} "
+                    f"{label}")
+            err, ok = close(got, want, 1e-5)
+            assert ok, f"{name}: max abs err {err}"
+            assert torch.all(got[(kv_len == 0).to(dev)] == 0), name
+            errs[name] = err
+            log(f"{name} kv_len {kv_len.tolist()}: max abs err {err:.3g} "
+                f"(tol 1e-5 rel+abs)")
+    # the prefill chunk: 384 rows a slot at q_pos 0, G = 3 rows folded
+    sq = max(SLICE_LENS)
+    kpool, table = ragged_pool(gen, b, hkv, page, np_, lens, torch.bfloat16,
+                               d)
+    vpool, _ = ragged_pool(gen, b, hkv, page, np_, lens, torch.bfloat16, d)
+    qr = torch.randn((b, hkv, g * sq, d), generator=gen) * d**-0.5
+    a = [t.to(dev).contiguous() for t in (qr, kpool, vpool, table, lens,
+                                          torch.zeros_like(lens))]
+    got = pfd.paged_flash_decode(*a, sq=sq)
+    want = pfd.paged_flash_decode_ref(*a, sq=sq)
+    err, ok = close(got, want, 1e-5)
+    design, _ = pfd.plan(b, hkv, g * sq, d, d, page, np_, sq, True)
+    assert ok, f"paged_flash_decode (sq>1) G=3: max abs err {err}"
+    errs["paged_flash_decode (sq>1) G=3"] = err
+    log(f"paged_flash_decode (sq>1) G=3, {g} x {sq} rows a kv head, design "
+        f"{pfd.DESIGNS[design]}: max abs err {err:.3g} (tol 1e-5 rel+abs)")
+    torch.cuda.synchronize()
+    return errs
+
+
 def bound(bytes_, op_s):
     byte_s = bytes_ / HBM_BYTES_PER_S
     return dict(bound_ms=max(byte_s, op_s) * 1e3,
@@ -751,15 +841,21 @@ def contiguous_kernel_phase(flush):
 # phase 4: small-width parity, card against CPU
 
 
+# the parity phase's smoke configs: G = 1, G = 4 and granite's G = 3
+# (MoE: 8 experts padded to 48)
+PARITY_ARCHS = (("camformer-bert", {}), ("mistral-nemo-12b", {}),
+                ("granite-moe-3b-a800m", dict(n_heads=6, n_kv_heads=2)))
+
+
 def parity_phase():
     from repro_torch.configs import smoke_config
     from repro_torch.models import (cast_params, init_params, init_pools,
                                     lm_decode_paged, lm_page_specs,
                                     lm_prefill_paged)
 
-    for arch in ("camformer-bert", "mistral-nemo-12b"):
+    for arch, overrides in PARITY_ARCHS:
         for backend in ("dense", "camformer"):
-            cfg = smoke_config(arch, attn_backend=backend)
+            cfg = smoke_config(arch, attn_backend=backend, **overrides)
             params = init_params(cfg, device="cpu", seed=SEED)
             rng = np.random.default_rng(SEED)
             b, s, page, np_ = 3, 20, 8, 6
@@ -793,48 +889,107 @@ def parity_phase():
                             logits["cpu"][:, live_rows], 1e-4)
             assert ok, f"parity {arch}/{backend}: max abs err {err}"
             assert torch.isfinite(logits["cuda"]).all()
-            log(f"parity {arch} smoke/{backend}: card vs CPU logits max abs "
-                f"err {err:.3g} (tol 1e-4)")
+            log(f"parity {arch} smoke/{backend} (G = "
+                f"{cfg.n_heads // cfg.n_kv_heads}): card vs CPU logits max "
+                f"abs err {err:.3g} (tol 1e-4)")
+
+
+def moe_parity_phase():
+    """``apply_moe`` at one full-width granite layer (d 1536, 40 experts
+    padded to 48, top-8, d_ff 512; f32 weights drawn from the seed) on
+    the card against the CPU, at the slice's decode shape (8 x 1 tokens:
+    one group of 8) and a prefill shape (8 x 64: 8 groups of 64): the
+    routing (experts, buffer positions, keep mask) identical, outputs
+    within 1e-5 and the aux values within 1e-6.  Returns the errors."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+
+    cfg = get_config("granite-moe-3b-a800m", dtype="float32")
+    gen = torch.Generator().manual_seed(SEED + 4)
+    params = {name: torch.randn(shape, generator=gen) * shape[-2]**-0.5
+              for name, (shape, _) in M.moe_shapes(cfg).items()}
+    on_card = {k: v.cuda() for k, v in params.items()}
+    errs = {}
+    for b, s in ((8, 1), (8, 64)):
+        x = torch.randn((b, s, cfg.d_model), generator=gen)
+        gt = M.group_size(b * s)
+        cap = M.capacity(cfg, gt)
+        got_r = M.route(on_card["router"], x.cuda().reshape(-1, gt,
+                                                            cfg.d_model),
+                        cfg, cap)
+        want_r = M.route(params["router"], x.reshape(-1, gt, cfg.d_model),
+                         cfg, cap)
+        for name in ("eidx", "pos", "keep"):
+            assert torch.equal(getattr(got_r, name).cpu(),
+                               getattr(want_r, name)), \
+                f"apply_moe {b}x{s}: {name} differs on the card"
+        got, got_aux = M.apply_moe(on_card, x.cuda(), cfg)
+        want, want_aux = M.apply_moe(params, x, cfg)
+        err, ok = close(got.cpu(), want, 1e-5)
+        assert ok, f"apply_moe {b}x{s}: max abs err {err}"
+        aux_err = max(abs(float(got_aux[k]) - float(want_aux[k]))
+                      for k in want_aux)
+        assert aux_err <= 1e-6, f"apply_moe {b}x{s} aux: {aux_err}"
+        errs[f"{b}x{s}"] = dict(out=err, aux=aux_err,
+                                drop_frac=float(want_aux["moe_drop_frac"]))
+        log(f"moe parity granite full-width layer, {b} x {s} tokens "
+            f"({b * s // gt} groups of {gt}, capacity {cap}): routing "
+            f"identical, "
+            f"output max abs err {err:.3g} (tol 1e-5 rel+abs), aux "
+            f"{aux_err:.3g} (tol 1e-6), drop share "
+            f"{float(want_aux['moe_drop_frac']):.4g}")
+    return errs
 
 
 def contiguous_parity_phase():
-    """lm_prefill + 8 lm_decode steps of the smoke camformer-bert with
-    use_kernel on the card (kernels) and on the CPU (plain versions),
-    both fed the CPU's greedy picks: logits within 1e-4 and the card's
-    own picks identical."""
+    """lm_prefill + 8 lm_decode steps with use_kernel on the card
+    (kernels) and on the CPU (plain versions), both fed the CPU's greedy
+    picks, for smoke camformer-bert (G = 1) and smoke
+    llava-next-mistral-7b (G = 4, its 8 patch embeddings prepended):
+    logits within 1e-4 and the card's own picks identical."""
     from repro_torch.configs import smoke_config
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
-    from repro_torch.models import (cast_params, init_params, init_pools,
-                                    lm_cache_specs, make_model_def)
+    from repro_torch.models import (cast_params, get_model_def, init_params,
+                                    init_pools, lm_cache_specs)
 
-    cfg = smoke_config("camformer-bert", use_kernel=True)
-    md = make_model_def()
-    prefill, serve = make_prefill_step(md, cfg), make_serve_step(md, cfg)
-    params = init_params(cfg, device="cpu", seed=SEED)
-    b, s, steps = 3, 24, 8
-    tokens = np.random.default_rng(SEED).integers(0, cfg.vocab, (b, s))
-    logits, fed = {}, []
-    for devname in ("cpu", "cuda"):
-        dev = torch.device(devname)
-        p = cast_params(params, torch.float32, dev)
-        caches = init_pools(lm_cache_specs(cfg, b, s + steps), dev)
-        lg, caches = prefill(p, {"tokens": torch.from_numpy(tokens).to(dev)},
-                             caches)
-        out = [lg]
-        pos = torch.full((b,), s, dtype=torch.int32, device=dev)
-        for step in range(steps):
-            if devname == "cpu":
-                fed.append(torch.argmax(out[-1], -1))
-            lg, caches = serve(p, fed[step].to(dev), pos, pos + 1, caches)
-            out.append(lg)
-            pos = pos + 1
-        logits[devname] = torch.stack(out).cpu()
-    err, ok = close(logits["cuda"], logits["cpu"], 1e-4)
-    assert ok, f"contiguous parity: max abs err {err}"
-    assert torch.equal(logits["cuda"].argmax(-1), logits["cpu"].argmax(-1))
-    log(f"parity camformer-bert smoke contiguous (use_kernel): card vs CPU "
-        f"logits max abs err {err:.3g} (tol 1e-4), greedy picks identical "
-        f"over prefill + {steps} steps")
+    for arch in ("camformer-bert", "llava-next-mistral-7b"):
+        cfg = smoke_config(arch, use_kernel=True)
+        md = get_model_def(cfg)
+        prefill, serve = make_prefill_step(md, cfg), make_serve_step(md, cfg)
+        params = init_params(cfg, device="cpu", seed=SEED)
+        b, s, steps = 3, 24, 8
+        rng = np.random.default_rng(SEED)
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                         (b, s)))}
+        if cfg.n_patches:
+            batch["image_embeds"] = torch.from_numpy(rng.standard_normal(
+                (b, cfg.n_patches, cfg.d_model)).astype(np.float32))
+        s += cfg.n_patches
+        logits, fed = {}, []
+        for devname in ("cpu", "cuda"):
+            dev = torch.device(devname)
+            p = cast_params(params, torch.float32, dev)
+            caches = init_pools(lm_cache_specs(cfg, b, s + steps), dev)
+            lg, caches = prefill(p, {k: v.to(dev) for k, v in batch.items()},
+                                 caches)
+            out = [lg]
+            pos = torch.full((b,), s, dtype=torch.int32, device=dev)
+            for step in range(steps):
+                if devname == "cpu":
+                    fed.append(torch.argmax(out[-1], -1))
+                lg, caches = serve(p, fed[step].to(dev), pos, pos + 1,
+                                   caches)
+                out.append(lg)
+                pos = pos + 1
+            logits[devname] = torch.stack(out).cpu()
+        err, ok = close(logits["cuda"], logits["cpu"], 1e-4)
+        assert ok, f"contiguous parity {arch}: max abs err {err}"
+        assert torch.equal(logits["cuda"].argmax(-1),
+                           logits["cpu"].argmax(-1)), arch
+        log(f"parity {arch} smoke contiguous (use_kernel, G = "
+            f"{cfg.n_heads // cfg.n_kv_heads}, {cfg.n_patches} patch "
+            f"embeddings): card vs CPU logits max abs err {err:.3g} (tol "
+            f"1e-4), greedy picks identical over prefill + {steps} steps")
 
 
 # ---------------------------------------------------------------------------
@@ -896,20 +1051,21 @@ def profile_run(eng, vocab, sampling):
     return dict(ticks=eng.ticks - ticks0, **prof)
 
 
-def serve_run(backend, *, spec_k=0, sampling=None, profile=True):
-    """``camformer-bert`` at full width in bf16 (seeded random weights),
-    served by ``ServeEngine`` (8 slots, 1024 tokens, 64-token pages,
-    overlap mode) for the slice's 8 requests of 32 new tokens: every
-    request finishes on ``length`` with 32 in-vocabulary tokens, no tick
-    fails, one readback a tick, no plain version runs on the card.
-    Returns (requests, launches, the slice line's numbers, layers)."""
+def serve_run(backend, *, arch="camformer-bert", spec_k=0, sampling=None,
+              profile=True):
+    """``arch`` at full width in bf16 (seeded random weights), served by
+    ``ServeEngine`` (8 slots, 1024 tokens, 64-token pages, overlap mode)
+    for the slice's 8 requests of 32 new tokens: every request finishes
+    on ``length`` with 32 in-vocabulary tokens, no tick fails, one
+    readback a tick, no plain version runs on the card.  Returns
+    (requests, launches, the slice line's numbers, layers)."""
     from repro_torch.configs import get_config
     from repro_torch.models import count_params, init_params
     from repro_torch.serving import ServeEngine
 
     sampling = sampling or {}
     label = f"{backend}{f' spec_k={spec_k}' if spec_k else ''}"
-    cfg = get_config("camformer-bert", attn_backend=backend)
+    cfg = get_config(arch, attn_backend=backend)
     params = init_params(cfg, device="cuda", seed=SEED)
     n_params = count_params(params)
     eng = ServeEngine(cfg, params, max_batch=8, max_len=1024, page_size=64,
@@ -953,9 +1109,9 @@ def serve_run(backend, *, spec_k=0, sampling=None, profile=True):
         result.update(spec_proposed=eng.spec_proposed,
                       spec_accepted=eng.spec_accepted,
                       spec_acceptance=eng.spec_acceptance)
-    log(f"slice camformer-bert/{label}: {json.dumps(result)}")
+    log(f"slice {arch}/{label}: {json.dumps(result)}")
     if profile:
-        log(f"profile camformer-bert/{label}: "
+        log(f"profile {arch}/{label}: "
             f"{json.dumps(profile_run(eng, cfg.vocab, sampling))}")
     del eng
     torch.cuda.empty_cache()
@@ -982,6 +1138,21 @@ def slice_phase():
     assert hybrid["paged_flash_decode (sq>1)"] > 0, hybrid
     assert hybrid["paged_flash_decode"] == 0, hybrid
     assert hybrid["paged_flash_decode (binary)"] == 0, hybrid
+    return runs
+
+
+def moe_slice_phase():
+    """``granite-moe-3b-a800m`` at full width and depth (32 layers, 40
+    experts padded to 48, top-8, G = 3), bf16, served greedily on
+    ``camformer`` and ``dense`` with ``serve_run``'s checks; returns each
+    run's launches."""
+    runs = {}
+    for backend in ("camformer", "dense"):
+        runs[backend] = serve_run(backend, arch="granite-moe-3b-a800m")[1]
+    cam, dense = runs["camformer"], runs["dense"]
+    assert cam["bacam_paged_topk_stage1"] > 0, cam
+    assert dense["paged_flash_decode"] > 0, dense
+    assert dense["paged_flash_decode (sq>1)"] > 0, dense
     return runs
 
 
@@ -1174,6 +1345,151 @@ def contiguous_slice_phase():
     return legs
 
 
+# the VLM leg: llava-next-mistral-7b at full width, depth cut to 4 layers;
+# 2 rows of 576 patch embeddings + 320 text tokens in a 1024-token cache
+VLM_LAYERS, VLM_B, VLM_TEXT, VLM_DECODE = 4, 2, 320, 16
+
+
+def vlm_contiguous_phase():
+    """``llava-next-mistral-7b`` at full width (d 4096, 32 heads on 8 kv
+    heads, head_dim 128, d_ff 14336, vocab 32000), 4 of its 32 layers, f32,
+    ``camformer`` with ``use_kernel``, through ``make_prefill_step`` /
+    ``make_serve_step`` of its ``ModelDef``: 2 rows of 576 patch
+    embeddings (the vision stub) and 320 text tokens, whole-prompt
+    prefill (kernel 4, one launch a layer) and 16 greedy decode steps
+    (kernel 3, one a layer a step), launch counts exact and no plain
+    version on the card.  Returns that run's launches.
+
+    Held, all fed the card's greedy picks, against: the same model on the
+    card with ``use_kernel`` off (the plain association path, the same
+    device's arithmetic: logits within 1e-5); the CPU (the kernels' plain
+    versions) at the depth of one layer, within 1e-4; and the CPU on the
+    ``dense`` backend at the full 4 layers, within 1e-4.  Deeper camformer
+    stacks are not held to the CPU: a binarized q or k component within
+    f32 rounding of zero takes another sign on the other device (rope at
+    positions near 900 alone moves q by up to 2e-4), a score then moves
+    by 2 across a top-32 boundary, and the next layer amplifies it; the
+    4-layer card-vs-CPU error is printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import (cast_params, count_params,
+                                    get_model_def, init_params, init_pools,
+                                    lm_cache_specs)
+
+    base = get_config("llava-next-mistral-7b", n_layers=VLM_LAYERS,
+                      attn_backend="camformer", use_kernel=True,
+                      dtype="float32")
+    n_img, b = base.n_patches, VLM_B
+    cache_len = CONTIG_CACHE
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": torch.from_numpy(
+                 rng.integers(0, base.vocab, (b, VLM_TEXT))),
+             "image_embeds": torch.from_numpy(
+                 (rng.standard_normal((b, n_img, base.d_model))
+                  * base.d_model**-0.5).astype(np.float32))}
+    params = init_params(base, device="cpu", seed=SEED)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+
+    def run(cfg, dev, picks=None, counted=False, profile=False):
+        md = get_model_def(cfg)
+        prefill, serve = make_prefill_step(md, cfg), make_serve_step(md, cfg)
+        p = cast_params(dict(params, blocks=params["blocks"][:cfg.n_layers]),
+                        torch.float32, dev)
+        caches = init_pools(lm_cache_specs(cfg, b, cache_len), dev)
+        bt = {k: v.to(dev) for k, v in batch.items()}
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        times = {}
+        with plain_calls_on_card() as plain:
+            if counted:
+                reset_launches()
+            t0 = time.perf_counter()
+            lg, caches = prefill(p, bt, caches)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            times["prefill_s"] = time.perf_counter() - t0
+            at_prefill = read_launches()
+            out, fed = [lg], []
+            pos = torch.full((b,), n_img + VLM_TEXT, dtype=torch.int32,
+                             device=dev)
+            t0 = time.perf_counter()
+            for step in range(VLM_DECODE):
+                tok = (torch.argmax(out[-1], -1) if picks is None
+                       else picks[step].to(dev))
+                fed.append(tok)
+                lg, caches = serve(p, tok, pos, pos + 1, caches)
+                out.append(lg)
+                pos = pos + 1
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            times["decode_s"] = time.perf_counter() - t0
+            launches = read_launches()
+        result = dict(logits=torch.stack(out).cpu(),
+                      picks=[t.cpu() for t in fed], launches=launches,
+                      at_prefill=at_prefill, plain=plain, **times)
+        if dev.type == "cuda":
+            result["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if profile:  # 8 more steps after the counted ones
+            state = dict(logits=lg, caches=caches, pos=pos)
+
+            def steps():
+                for _ in range(8):
+                    state["logits"], state["caches"] = serve(
+                        p, torch.argmax(state["logits"], -1), state["pos"],
+                        state["pos"] + 1, state["caches"])
+                    state["pos"] = state["pos"] + 1
+
+            result["profile"] = profiled(steps)
+        del caches, p
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return result
+
+    card = run(base, cuda, counted=True, profile=True)
+    launches, plain = card["launches"], card["plain"]
+    assert plain == {}, f"vlm leg: plain versions ran on the card {plain}"
+    assert card["at_prefill"]["bacam_mvm"] == VLM_LAYERS, card["at_prefill"]
+    assert card["at_prefill"]["bacam_topk_stage1"] == 0, card["at_prefill"]
+    assert launches["bacam_mvm"] == VLM_LAYERS, launches
+    assert launches["bacam_topk_stage1"] == VLM_DECODE * VLM_LAYERS, launches
+    assert launches["bacam_topk_stage1 (sq>1)"] == 0, launches
+    assert torch.isfinite(card["logits"]).all(), "vlm leg: non-finite"
+    picks = card["picks"]
+    assert all(bool(((t >= 0) & (t < base.vocab)).all()) for t in picks)
+    errs = {}
+    plain_route = run(base.replace(use_kernel=False), cuda, picks=picks)
+    errs["card plain route"], ok = close(card["logits"],
+                                         plain_route["logits"], 1e-5)
+    assert ok, f"vlm leg: kernel vs plain route on the card {errs}"
+    one = base.replace(n_layers=1)
+    errs["CPU, 1 layer"], ok = close(run(one, cuda, picks=picks)["logits"],
+                                     run(one, cpu, picks=picks)["logits"],
+                                     1e-4)
+    assert ok, f"vlm leg: card vs CPU at 1 layer {errs}"
+    dense = base.replace(attn_backend="dense", use_kernel=False)
+    errs["CPU, dense, 4 layers"], ok = close(
+        run(dense, cuda, picks=picks)["logits"],
+        run(dense, cpu, picks=picks)["logits"], 1e-4)
+    assert ok, f"vlm leg: dense card vs CPU {errs}"
+    errs["CPU, 4 layers (not held)"], _ = close(
+        card["logits"], run(base, cpu, picks=picks)["logits"], 1e-4)
+    log(f"vlm parity llava-next-mistral-7b: logits max abs err "
+        f"{json.dumps(errs)} (tol 1e-5 card plain route, 1e-4 CPU)")
+    log("profile llava-next-mistral-7b contiguous decode (8 steps): "
+        f"{json.dumps(card['profile'])}")
+    log(f"vlm leg llava-next-mistral-7b camformer use_kernel f32: "
+        + json.dumps(dict(
+            layers=VLM_LAYERS, batch=b, patches=n_img, text=VLM_TEXT,
+            positions=n_img + VLM_TEXT, cache_len=cache_len,
+            prefill_s=card["prefill_s"], decode_steps=VLM_DECODE,
+            decode_s=card["decode_s"],
+            decode_tokens_per_s=b * VLM_DECODE / card["decode_s"],
+            peak_mem_gb=card["peak_mem_gb"], params=count_params(params),
+            launches={k: v for k, v in launches.items() if v})))
+    return launches
+
+
 def kernel_instance(mangled):
     """``name<N, ...>`` of a mangled ``..._kernel<N, ...>`` (Itanium: a name
     is its length, then its characters; int template arguments
@@ -1270,11 +1586,25 @@ def main():
         f" under the kernels' timing: L2 flushed, CUDA events)")
     rows = kernel_phase(flush) + contiguous_kernel_phase(flush)
     del flush
+    log(f"gqa3 parity: {json.dumps(gqa3_kernel_phase())}")
     parity_phase()
+    log(f"moe parity: {json.dumps(moe_parity_phase())}")
     contiguous_parity_phase()
     spec_exactness_phase()
-    runs = (list(slice_phase().values()) + list(spec_phase().values())
-            + list(contiguous_slice_phase().values()))
+    log(f"elapsed {time.perf_counter() - t0:.1f}s: kernels and parity")
+    runs = list(slice_phase().values()) + list(spec_phase().values())
+    log(f"elapsed {time.perf_counter() - t0:.1f}s: paged slice")
+    runs += list(contiguous_slice_phase().values())
+    log(f"elapsed {time.perf_counter() - t0:.1f}s: contiguous slice")
+    moe_runs = moe_slice_phase()
+    log(f"elapsed {time.perf_counter() - t0:.1f}s: MoE slice")
+    vlm = vlm_contiguous_phase()
+    log(f"elapsed {time.perf_counter() - t0:.1f}s: VLM leg")
+    log(f"launches on the MoE and VLM paths: " + json.dumps(dict(
+        {f"granite {k}": {n: c for n, c in v.items() if c}
+         for k, v in moe_runs.items()},
+        vlm={n: c for n, c in vlm.items() if c})))
+    runs += list(moe_runs.values()) + [vlm]
     for row in rows:  # launches over every path run
         row["launches"] = sum(run[row["name"]] for run in runs)
         if row["path"] != "none":

@@ -7,8 +7,10 @@
         [--temperature 0.8 --top-k 40 --top-p 0.95] \
         [--spec-k 3 --spec-backend binary] [--device cuda|cpu]
 
-Runs on the card by default; ``--device cpu`` runs the plain PyTorch
-path.  Weights are random, drawn from ``--seed`` (no weights ship with
+Serves the dense, MoE and VLM families (the VLM text-only, as the
+reference does); the other families raise NotImplementedError naming
+the family.  Runs on the card by default; ``--device cpu`` runs the
+plain PyTorch path.  Weights are random, drawn from ``--seed`` (no weights ship with
 the repository).  ``--temperature 0`` (the default) decodes greedily;
 one sampling policy applies to every CLI request.  ``--spec-k N`` turns
 on self-speculative decoding with an ``--spec-backend`` drafter.

@@ -3,10 +3,13 @@
     prefill_step(params, batch, caches) -> (logits, caches)
     serve_step(params, tokens, pos, kv_len, caches) -> (logits, caches)
 
-Each casts the parameters to the config's compute type first (a no-op
-for parameters already in it) and calls the model's entry point
-(``models.make_model_def()``).  The train step and the sharding
-assembly of the reference's ``launch/steps.py`` are not ported yet.
+``md`` is the family's ``ModelDef`` (``models.get_model_def(cfg)``:
+dense, MoE or VLM).  Each step casts the parameters to the config's
+compute type first (a no-op for parameters already in it) and calls the
+model's entry point; the batch goes through as given, so a VLM prefill
+takes ``batch["image_embeds"]`` (B, P, d) beside ``batch["tokens"]``.
+The train step and the sharding assembly of the reference's
+``launch/steps.py`` are not ported yet.
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
-"""The decoder-only LM (paged serving and contiguous-cache paths), in
-PyTorch."""
+"""The decoder-only LM families (dense, MoE, VLM) on the paged serving
+and contiguous-cache paths, in PyTorch."""
 
 from repro_torch.models.convert import from_jax_params  # noqa: F401
 from repro_torch.models.module import (cast_params,  # noqa: F401
                                        count_params, init_params)
+from repro_torch.models.registry import get_model_def  # noqa: F401
 from repro_torch.models.transformer import (ModelDef,  # noqa: F401
                                             dtype_of, init_pools,
                                             lm_cache_specs, lm_decode,

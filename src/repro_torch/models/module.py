@@ -1,4 +1,5 @@
-"""Parameters of the decoder-only LM: shapes, seeded init and casting.
+"""Parameters of the decoder-only LM (the dense, MoE and VLM families):
+shapes, seeded init and casting.
 
 The parameter tree mirrors the reference's ``lm_specs`` leaf for leaf,
 with one difference of layout: the reference stacks block parameters
@@ -11,6 +12,11 @@ loop).  Matrices keep the (in, out) layout and are applied as ``x @ W``.
                  [, "bq", "bk", "bv"]}, "ln2": {"scale"},
                  "ffn": {"w_gate", "w_up", "w_down"}}, ...],
      "ln_f": {"scale"}}
+
+An MoE block's ``ffn`` holds ``router`` (d, E_pad) and the expert
+stacks ``w_gate``/``w_up`` (E_pad, d, f) and ``w_down`` (E_pad, f, d)
+instead (models/moe.py).  The VLM family is the same tree: its vision
+tower is a stub of precomputed patch embeddings.
 """
 
 from __future__ import annotations
@@ -18,15 +24,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models.moe import moe_shapes
+from repro_torch.models.registry import get_model_def
 
 __all__ = ["block_shapes", "init_params", "cast_params", "count_params"]
 
 
 def _check_supported(cfg):
-    if cfg.family not in ("dense",) or cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name!r} (family {cfg.family!r}): only the dense "
-            "decoder-only LM is ported")
+    get_model_def(cfg)  # raises NotImplementedError for an unported family
     if cfg.act != "silu" or cfg.abs_pos or not cfg.use_rope:
         raise NotImplementedError(
             f"{cfg.name!r}: only the gated-silu, RoPE transformer is ported")
@@ -43,8 +48,11 @@ def block_shapes(cfg) -> dict:
     if cfg.qkv_bias:
         attn.update(bq=((q,), "zeros"), bk=((kv,), "zeros"),
                     bv=((kv,), "zeros"))
-    ffn = {"w_gate": ((d, f), "normal"), "w_up": ((d, f), "normal"),
-           "w_down": ((f, d), "normal")}
+    if cfg.n_experts:
+        ffn = moe_shapes(cfg)
+    else:
+        ffn = {"w_gate": ((d, f), "normal"), "w_up": ((d, f), "normal"),
+               "w_down": ((f, d), "normal")}
     return {"ln1": dict(norm), "attn": attn, "ln2": dict(norm), "ffn": ffn}
 
 
@@ -53,8 +61,10 @@ def _leaf(shape, init, gen, device, std=None):
         return torch.zeros(shape, device=device)
     if init == "ones":
         return torch.ones(shape, device=device)
-    if std is None:  # fan-in scaled normal over the in-features axis
-        std = (1.0 / max(1, shape[0])) ** 0.5
+    if std is None:  # fan-in scaled normal over the in-features axis,
+        # the last-but-one (d of an (E, d, f) expert stack)
+        fan_in = shape[0] if len(shape) == 1 else shape[-2]
+        std = (1.0 / max(1, fan_in)) ** 0.5
     return torch.randn(shape, generator=gen, device=device) * std
 
 

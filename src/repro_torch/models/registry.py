@@ -1,0 +1,26 @@
+"""Model registry: arch family -> ModelDef."""
+
+from __future__ import annotations
+
+from repro_torch.models import transformer, vlm
+from repro_torch.models.transformer import ModelDef
+
+__all__ = ["get_model_def"]
+
+_FAMILY = {
+    "dense": transformer.make_model_def,
+    "moe": transformer.make_model_def,
+    "vlm": vlm.make_model_def,
+}
+
+
+def get_model_def(cfg) -> ModelDef:
+    """The family's entry points.  The reference's other families
+    (``ssm``, ``hybrid``, ``encdec``, ``audio``) raise
+    NotImplementedError naming the family."""
+    try:
+        return _FAMILY[cfg.family]()
+    except KeyError:
+        raise NotImplementedError(
+            f"{cfg.name!r}: model family {cfg.family!r} is not ported yet "
+            f"(the port has {sorted(_FAMILY)})") from None

@@ -1,22 +1,25 @@
-"""Decoder-only transformer LM: the serving forward over paged KV pools
-and the contiguous-cache prefill/decode.
+"""Decoder-only transformer LM (dense / GQA / MoE): the serving forward
+over paged KV pools and the contiguous-cache prefill/decode.
 
 The layer stack is a Python loop over the per-layer parameter dicts and
 per-layer pool or cache dicts (uniform and mixed ``layer_backends``
 stacks alike); each layer binds its own backend
-(``cfg.backend_for(layer)``).  ``make_model_def`` bundles the entry
-points as the reference's ``ModelDef`` does.
+(``cfg.backend_for(layer)``).  A config with ``n_experts`` runs each
+block's FFN through models/moe.py.  ``make_model_def`` bundles the entry
+points as the reference's ``ModelDef`` does; models/vlm.py reuses them
+with patch embeddings prepended.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch.core.backend import backends_for
 from repro_torch.models import layers as L
 from repro_torch.models.attention import attention_block
+from repro_torch.models.moe import apply_moe
 
 __all__ = ["ModelDef", "make_model_def", "dtype_of", "lm_cache_specs",
            "lm_page_specs", "init_pools", "lm_hidden", "lm_prefill",
@@ -56,45 +59,82 @@ def init_pools(specs, device) -> list:
 
 
 class ModelDef(NamedTuple):
-    """The contiguous-cache entry points the launch steps call, as the
-    reference's ``ModelDef`` bundles them (its other fields are not
-    needed by any port caller yet)."""
+    """The entry points a family gives its callers, as the reference's
+    ``ModelDef`` bundles them: the contiguous-cache steps the launch
+    steps call, and the paged-serving interface ``ServeEngine`` needs
+    (None for a family without a paged cache).  The reference's
+    training fields (``specs``, ``loss``) wait for the train step.
 
-    prefill: Callable[..., Any]  # (params, batch, caches, cfg)
-    decode: Callable[..., Any]  # (params, tokens, pos, kv_len, caches, cfg)
+      prefill(params, batch, caches, cfg) -> (logits, caches)
+      decode(params, tokens, pos, kv_len, caches, cfg) -> (logits, caches)
+      page_specs(cfg, n_pages, page_size, max_batch) -> per-layer specs
+      prefill_paged(params, batch, pools, table, cfg) -> (logits, pools)
+      decode_paged(params, tokens, pos, kv_len, pools, table, cfg[, base])
+      verify_paged(params, batch, pools, table, cfg) -> ((B,S,V), pools)
+    """
+
+    prefill: Callable[..., Any]
+    decode: Callable[..., Any]
+    page_specs: Optional[Callable[..., Any]] = None
+    prefill_paged: Optional[Callable[..., Any]] = None
+    decode_paged: Optional[Callable[..., Any]] = None
+    verify_paged: Optional[Callable[..., Any]] = None
 
 
 def make_model_def() -> ModelDef:
-    return ModelDef(prefill=lm_prefill, decode=lm_decode)
+    return ModelDef(prefill=lm_prefill, decode=lm_decode,
+                    page_specs=lm_page_specs, prefill_paged=lm_prefill_paged,
+                    decode_paged=lm_decode_paged,
+                    verify_paged=lm_verify_paged)
 
 
 def _apply_block(p, x, cfg, *, positions, cache, cache_index, kv_len,
                  page_table, scale_base, backend):
+    """One block; returns (x, cache, aux) with aux the MoE FFN's
+    {moe_aux_loss, moe_drop_frac} (empty for a dense FFN)."""
     h, cache = attention_block(
         p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg, positions=positions,
         cache=cache, cache_index=cache_index, kv_len=kv_len,
         page_table=page_table, scale_base=scale_base, backend=backend)
     x = x + h
-    x = x + L.apply_mlp(p["ffn"], L.apply_norm(p["ln2"], x, cfg), cfg)
-    return x, cache
+    ff_in = L.apply_norm(p["ln2"], x, cfg)
+    if cfg.n_experts:
+        ff, aux = apply_moe(p["ffn"], ff_in, cfg)
+    else:
+        ff, aux = L.apply_mlp(p["ffn"], ff_in, cfg), {}
+    return x + ff, cache, aux
 
 
 def lm_hidden(params, tokens, cfg, *, positions=None, caches, kv_len=None,
-              page_table=None, cache_index=None, scale_base=None):
-    """tokens (B, S) -> final hidden states (B, S, d); caches (one dict
-    per layer, paged pools or contiguous caches) are written in place.
-    ``positions`` defaults to arange(S) for every row."""
-    x = L.embed_lookup(params["embed"], tokens, cfg, dtype_of(cfg))
+              page_table=None, cache_index=None, scale_base=None,
+              prefix_embeds=None):
+    """tokens (B, S) -> (final hidden states (B, P + S, d), caches, aux);
+    caches (one dict per layer, paged pools or contiguous caches) are
+    written in place.  ``prefix_embeds`` (B, P, d) (the VLM's patch
+    embeddings) are prepended to the token embeddings; ``positions``
+    defaults to arange(P + S) for every row.  aux holds the per-layer
+    means of the MoE FFN's ``moe_aux_loss`` and ``moe_drop_frac``
+    (float32 scalars, 0 for a dense stack)."""
+    dt = dtype_of(cfg)
+    x = L.embed_lookup(params["embed"], tokens, cfg, dt)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(dt), x], dim=1)
     if positions is None:
-        b, s = tokens.shape
+        b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device)[None].expand(b, s)
+    aux_sum = torch.zeros(2, dtype=torch.float32, device=x.device)
     for i, bk in enumerate(backends_for(cfg)):
-        x, caches[i] = _apply_block(
+        x, caches[i], aux = _apply_block(
             params["blocks"][i], x, cfg, positions=positions,
             cache=caches[i], cache_index=cache_index, kv_len=kv_len,
             page_table=page_table, scale_base=scale_base, backend=bk)
-    return L.apply_norm(params["ln_f"], x, cfg), caches
+        if aux:
+            aux_sum = aux_sum + torch.stack([aux["moe_aux_loss"],
+                                             aux["moe_drop_frac"]])
+    aux_mean = aux_sum / cfg.n_layers
+    aux = {"moe_aux_loss": aux_mean[0], "moe_drop_frac": aux_mean[1]}
+    return L.apply_norm(params["ln_f"], x, cfg), caches, aux
 
 
 def _head_logits(params, last, cfg):
@@ -129,7 +169,7 @@ def _paged_suffix_hidden(params, batch, caches, page_table, cfg):
     for c0 in range(0, s, chunk):
         pos = (offsets[:, None] + c0
                + torch.arange(chunk, dtype=torch.int32, device=dev)[None])
-        x, caches = lm_hidden(
+        x, caches, _ = lm_hidden(
             params, tokens[:, c0:c0 + chunk], cfg, positions=pos,
             caches=caches, kv_len=lens, page_table=page_table,
             scale_base=scale_base)
@@ -177,29 +217,33 @@ def lm_verify_paged(params, batch, caches, page_table, cfg):
 
 def lm_prefill(params, batch, caches, cfg):
     """Prefill into contiguous caches: the forward writing each layer's
-    cache from index 0.  batch: tokens (B, S), every row a full prompt.
+    cache from index 0.  batch: tokens (B, S), every row a full prompt,
+    and optional image_embeds (B, P, d), prepended (the cache then holds
+    P + S positions).
 
-    With ``cfg.prefill_chunk`` set, S > chunk and S a chunk multiple, the
-    prompt runs in chunks that attend to the cache so far: chunk i is
-    written at i * chunk and goes through ``backend.decode`` with
-    kv_len (i + 1) * chunk for every row.  Returns (last-token logits
-    (B, V_pad) float32, caches).
+    With ``cfg.prefill_chunk`` set, S > chunk, S a chunk multiple and no
+    image_embeds, the prompt runs in chunks that attend to the cache so
+    far: chunk i is written at i * chunk and goes through
+    ``backend.decode`` with kv_len (i + 1) * chunk for every row.
+    Returns (last-token logits (B, V_pad) float32, caches).
     """
     tokens = batch["tokens"]
     b, s = tokens.shape
     chunk = cfg.prefill_chunk
-    if chunk and s > chunk and s % chunk == 0:
+    image = batch.get("image_embeds")
+    if chunk and s > chunk and s % chunk == 0 and image is None:
         steps = torch.arange(chunk, dtype=torch.int32, device=tokens.device)
         for i in range(s // chunk):
             pos = (i * chunk + steps)[None].expand(b, chunk)
             kvl = torch.full((b,), (i + 1) * chunk, dtype=torch.int32,
                              device=tokens.device)
-            x, caches = lm_hidden(
+            x, caches, _ = lm_hidden(
                 params, tokens[:, i * chunk:(i + 1) * chunk], cfg,
                 positions=pos, caches=caches, cache_index=i * chunk,
                 kv_len=kvl)
         return _head_logits(params, x[:, -1], cfg), caches
-    x, caches = lm_hidden(params, tokens, cfg, caches=caches, cache_index=0)
+    x, caches, _ = lm_hidden(params, tokens, cfg, caches=caches,
+                             cache_index=0, prefix_embeds=image)
     return _head_logits(params, x[:, -1], cfg), caches
 
 
@@ -208,7 +252,7 @@ def lm_decode(params, tokens, pos, kv_len, caches, cfg):
     (B,); each row's token is written at its own ``pos``.  Returns
     (logits (B, V_pad) float32, caches)."""
     b = tokens.shape[0]
-    x, caches = lm_hidden(
+    x, caches, _ = lm_hidden(
         params, tokens.reshape(b, 1), cfg,
         positions=pos.reshape(b, 1).to(torch.int32), caches=caches,
         cache_index=pos.to(torch.int32), kv_len=kv_len.to(torch.int32))
@@ -220,7 +264,7 @@ def lm_decode_paged(params, tokens, pos, kv_len, caches, page_table, cfg,
     """One decode step against the paged pools. tokens/pos/kv_len/base:
     (B,).  Returns (logits (B, V_pad), pools)."""
     b = tokens.shape[0]
-    x, caches = lm_hidden(
+    x, caches, _ = lm_hidden(
         params, tokens.reshape(b, 1), cfg,
         positions=pos.reshape(b, 1).to(torch.int32), caches=caches,
         kv_len=kv_len.to(torch.int32), page_table=page_table,

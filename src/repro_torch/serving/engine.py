@@ -8,7 +8,9 @@ The engine mirrors the reference package's ``serving/engine.py``:
      emits a ``TickPlan``.
   2. the device step — one plain PyTorch function per tick
      (``_prefill_step`` / ``_decode_step``, or the speculative step of
-     serving/speculate.py): the model forward through every layer's
+     serving/speculate.py) over the family's paged interface
+     (``models.get_model_def``: dense, MoE, text-only VLM): the model
+     forward through every layer's
      ``backend.paged_decode`` (paged CUDA kernels on the card), the
      in-place pool writes, and keyed sampling (``sample_step_keyed``;
      ticks whose rows are all greedy take the argmax).  The sampled ids,
@@ -50,9 +52,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.module import cast_params
-from repro_torch.models.transformer import (dtype_of, init_pools,
-                                            lm_decode_paged, lm_page_specs,
-                                            lm_prefill_paged)
+from repro_torch.models.registry import get_model_def
+from repro_torch.models.transformer import dtype_of, init_pools
 from repro_torch.serving import sampler as S
 from repro_torch.serving import speculate
 from repro_torch.serving.faults import NO_FAULTS, FaultPlan
@@ -130,10 +131,20 @@ class ServeEngine:
                 spec_k=cfg.spec_k if spec_k is None else spec_k,
                 spec_backend=(cfg.spec_backend if spec_backend is None
                               else spec_backend))
+        md = get_model_def(cfg)
+        if md.page_specs is None:
+            raise ValueError(
+                f"{cfg.name!r} (family {cfg.family!r}) does not expose the "
+                "paged serving interface (page_specs / prefill_paged / "
+                "decode_paged) required by ServeEngine")
+        if cfg.spec_k and md.verify_paged is None:
+            raise ValueError(
+                f"{cfg.name!r} does not expose verify_paged "
+                "(all-position logits), required for spec_k > 0")
         if mode not in ("sync", "overlap"):
             raise ValueError(f"mode must be 'sync' or 'overlap', got {mode!r}")
         self.device = resolve_device(device)
-        self.cfg = cfg
+        self.md, self.cfg = md, cfg
         self.params = cast_params(params, dtype_of(cfg), self.device)
         self.max_batch, self.max_len = max_batch, max_len
         self.mode = mode
@@ -156,7 +167,7 @@ class ServeEngine:
             prefill_bucket=chunk or PREFILL_BUCKET, spec_k=self.spec_k,
             max_queue=max_queue)
         self.caches = init_pools(
-            lm_page_specs(cfg, n_pages, page_size, max_batch), self.device)
+            md.page_specs(cfg, n_pages, page_size, max_batch), self.device)
         # speculative decoding: the drafter stack keeps its OWN pools on
         # the SAME page ids, so admission, COW forks and rollback are
         # planned once for both
@@ -165,7 +176,7 @@ class ServeEngine:
         if self.spec_k:
             self._draft_cfg = speculate.draft_config(cfg)
             self.draft_caches = init_pools(
-                lm_page_specs(self._draft_cfg, n_pages, page_size,
+                md.page_specs(self._draft_cfg, n_pages, page_size,
                               max_batch), self.device)
         # on-device token state: the decode step's input tokens are the
         # previous step's output, never a host round-trip
@@ -252,13 +263,14 @@ class ServeEngine:
         batch = {"tokens": tokens, "lens": lens, "offsets": offsets,
                  "scale_base": scale_base}
         if self.spec_k:
-            fn = speculate.build_spec_prefill(self.cfg, self._draft_cfg, hot)
+            fn = speculate.build_spec_prefill(self.md, self.cfg,
+                                               self._draft_cfg, hot)
             first, self.caches, self.draft_caches = fn(
                 self.params, batch, self.caches, self.draft_caches, pt,
                 *samp)
             return first
-        logits, self.caches = lm_prefill_paged(self.params, batch,
-                                               self.caches, pt, self.cfg)
+        logits, self.caches = self.md.prefill_paged(self.params, batch,
+                                                    self.caches, pt, self.cfg)
         return self._sample(logits, hot, samp)
 
     def _decode_step(self, tok_prev, fresh, fresh_mask, live_mask, pos,
@@ -269,7 +281,7 @@ class ServeEngine:
         tokens = torch.where(live_mask,
                              torch.where(fresh_mask, fresh, tok_prev),
                              torch.zeros_like(tok_prev))
-        logits, self.caches = lm_decode_paged(
+        logits, self.caches = self.md.decode_paged(
             self.params, tokens, pos, kv_len, self.caches, pt, self.cfg,
             base=base)
         return self._sample(logits, hot, samp)
@@ -278,7 +290,7 @@ class ServeEngine:
                    hot, samp):
         """One speculative tick; returns the (B, m + 1) pack and updates
         the token buffer and both pools."""
-        fn = speculate.build_spec_step(self.cfg, self._draft_cfg,
+        fn = speculate.build_spec_step(self.md, self.cfg, self._draft_cfg,
                                        self.spec_k + 1, hot)
         packed, self._tok_buf, self.caches, self.draft_caches = fn(
             self.params, self._tok_buf, fresh, fresh_mask, live_mask, pos,

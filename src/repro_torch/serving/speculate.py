@@ -5,7 +5,8 @@ The drafter is the same model with every layer forced to
 ``cfg.spec_backend`` (``binary`` by default), drafting from its own page
 pools on the target's page table.  Each tick it proposes up to
 ``spec_k`` tokens per decoding slot, and the target stack scores all
-``m = spec_k + 1`` positions in one Sq > 1 pass (``lm_verify_paged``).
+``m = spec_k + 1`` positions in one Sq > 1 pass (the model's
+``verify_paged``).
 
 Exactness: the emitted tokens are the TARGET's keyed samples.  Position
 j of the verify pass samples at generated-token index ``index + j``, the
@@ -34,8 +35,6 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.transformer import (lm_decode_paged,
-                                            lm_prefill_paged, lm_verify_paged)
 from repro_torch.serving import sampler as S
 
 __all__ = ["draft_config", "sample_positions_keyed", "accept_prefix",
@@ -141,7 +140,7 @@ def _sampler(hot: bool):
     return lambda logits, *_: S.greedy(logits)
 
 
-def build_spec_prefill(cfg, dcfg, hot: bool):
+def build_spec_prefill(md, cfg, dcfg, hot: bool):
     """The prefill step with speculation on: the target prefill (its
     last-token sample is the slot's first token) plus a drafter prefill
     over the same chunk batch, so the drafter's pool holds the prompt KV
@@ -150,15 +149,15 @@ def build_spec_prefill(cfg, dcfg, hot: bool):
 
     def fn(params, batch, caches, dcaches, pt, keys, index, temps, top_ks,
            top_ps):
-        logits, caches = lm_prefill_paged(params, batch, caches, pt, cfg)
-        _, dcaches = lm_prefill_paged(params, batch, dcaches, pt, dcfg)
+        logits, caches = md.prefill_paged(params, batch, caches, pt, cfg)
+        _, dcaches = md.prefill_paged(params, batch, dcaches, pt, dcfg)
         first = sample(logits, keys, index, temps, top_ks, top_ps)
         return first, caches, dcaches
 
     return fn
 
 
-def build_spec_step(cfg, dcfg, m: int, hot: bool):
+def build_spec_step(md, cfg, dcfg, m: int, hot: bool):
     """The speculative decode step of one tick.
 
     Per live row with ``n_tok`` positions from ``pos`` and generated-token
@@ -192,7 +191,7 @@ def build_spec_step(cfg, dcfg, m: int, hot: bool):
         zero = torch.zeros_like(pos)
         for j in range(m):
             kvl = torch.where(live_mask & (j < n_tok), pos + j + 1, zero)
-            dlogits, dcaches = lm_decode_paged(params, tok, pos + j, kvl,
+            dlogits, dcaches = md.decode_paged(params, tok, pos + j, kvl,
                                                dcaches, pt, dcfg, base=base)
             snaps.append(_kscales(dcaches))
             if j < m - 1:
@@ -204,7 +203,7 @@ def build_spec_step(cfg, dcfg, m: int, hot: bool):
         lens = torch.where(live_mask, pos + n_tok, zero)
         batch = {"tokens": drafts, "lens": lens, "offsets": pos,
                  "scale_base": base}
-        logits, caches = lm_verify_paged(params, batch, caches, pt, cfg)
+        logits, caches = md.verify_paged(params, batch, caches, pt, cfg)
         idx = index[:, None] + torch.arange(m, dtype=torch.int32,
                                             device=pos.device)[None]
         if hot:

@@ -3,7 +3,11 @@ writes of both backends, and ``lm_prefill`` followed by 6 ``lm_decode``
 steps through ``launch/steps`` for ``camformer-bert`` (G = 1) and
 ``mistral-nemo-12b`` (G = 4) smoke configs, on ``camformer`` with and
 without ``use_kernel``, ``dense`` and the mixed ``dense,camformer``
-stack, with and without ``prefill_chunk``.
+stack, with and without ``prefill_chunk``; the MoE family at
+``granite-moe-3b-a800m``'s G = 3 (6 heads on 2 kv heads) and
+``moonshot-v1-16b-a3b`` smoke, and ``llava-next-mistral-7b`` smoke with
+its 8 patch embeddings prepended (``image_embeds``; decode starts after
+the patches).
 
 Weights are the reference's, passed through ``models.from_jax_params``.
 Both sides are fed the reference's greedy picks, so one argmax near-tie
@@ -25,14 +29,14 @@ import torch
 
 from repro.configs import smoke_config as j_smoke
 from repro.core.backend import get_backend as j_backend
-from repro.models import get_model_def
+from repro.models import get_model_def as j_model_def
 from repro.models.module import init_params as j_init
 
 from repro_torch.configs import smoke_config as t_smoke
 from repro_torch.core.backend import get_backend as t_backend
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
-from repro_torch.models import (from_jax_params, init_pools, lm_cache_specs,
-                                make_model_def)
+from repro_torch.models import (from_jax_params, get_model_def, init_pools,
+                                lm_cache_specs)
 
 _IS_SPEC = (lambda x: isinstance(x, tuple) and len(x) == 2
             and isinstance(x[0], jax.ShapeDtypeStruct))
@@ -81,10 +85,15 @@ def test_cache_writes_match_reference(backend):
         _assert_cache_equal(tc, jc)
 
 
+# granite's GQA group at smoke width: G = 24 / 8 = 3
+OVERRIDES = {"granite-moe-3b-a800m": dict(n_heads=6, n_kv_heads=2)}
+
+
 def _configs(arch, backend, use_kernel, chunk):
     kw = ({"layer_backends": tuple(backend.split(","))} if "," in backend
           else {"attn_backend": backend})
     kw.update(use_kernel=use_kernel, prefill_chunk=chunk)
+    kw.update(OVERRIDES.get(arch, {}))
     tcfg = t_smoke(arch, **kw)
     if use_kernel and chunk and tcfg.n_heads > tcfg.n_kv_heads:
         kw["use_kernel"] = False  # the reference's kernel branch fails here
@@ -97,31 +106,44 @@ CASES = [(arch, backend, use_kernel, chunk)
                                      ("camformer", False), ("dense", False),
                                      ("dense,camformer", True))
          for chunk in (0, 4)]
+# the MoE family (the chunked leg reaches 3b) and the VLM with patches
+CASES += [("granite-moe-3b-a800m", "camformer", True, 0),
+          ("granite-moe-3b-a800m", "camformer", True, 4),
+          ("granite-moe-3b-a800m", "dense", False, 0),
+          ("moonshot-v1-16b-a3b", "camformer", True, 4),
+          ("llava-next-mistral-7b", "camformer", False, 0),
+          ("llava-next-mistral-7b", "dense", False, 4)]
 
 
 @pytest.mark.parametrize("arch,backend,use_kernel,chunk", CASES)
 def test_contiguous_prefill_decode_match_reference(arch, backend, use_kernel,
                                                    chunk):
     jcfg, tcfg = _configs(arch, backend, use_kernel, chunk)
-    md = get_model_def(jcfg)
+    md = j_model_def(jcfg)
     jparams = j_init(md.specs(jcfg), jax.random.PRNGKey(0))
     tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg,
                               device="cpu")
-    b, s, cache_len, steps = 2, 8, 16, 6
+    b, s, steps = 2, 8, 6
+    n_img = jcfg.n_patches  # VLM: patch embeddings ahead of the text
+    cache_len = 16 + n_img
     jcaches = _zeros(md.cache_specs(jcfg, b, cache_len))
     tcaches = init_pools(lm_cache_specs(tcfg, b, cache_len), "cpu")
-    tokens = np.random.default_rng(0).integers(
-        0, jcfg.vocab, (b, s)).astype(np.int32)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, jcfg.vocab, (b, s)).astype(np.int32)}
+    if n_img:
+        batch["image_embeds"] = rng.standard_normal(
+            (b, n_img, jcfg.d_model)).astype(np.float32)
 
-    tmd = make_model_def()
+    tmd = get_model_def(tcfg)
     t_prefill = make_prefill_step(tmd, tcfg)
     t_serve = make_serve_step(tmd, tcfg)
     jl, jcaches = jax.jit(md.prefill, static_argnums=3)(
-        jparams, {"tokens": jnp.asarray(tokens)}, jcaches, jcfg)
-    tl, tcaches = t_prefill(tparams, {"tokens": torch.from_numpy(tokens)},
-                            tcaches)
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()}, jcaches,
+        jcfg)
+    tl, tcaches = t_prefill(
+        tparams, {k: torch.from_numpy(v) for k, v in batch.items()}, tcaches)
     j_decode = jax.jit(md.decode, static_argnums=5)
-    pos = np.full((b,), s, np.int32)
+    pos = np.full((b,), n_img + s, np.int32)
     for step in range(steps + 1):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
                                    atol=1e-4)

@@ -75,7 +75,9 @@ def _assert_candidates(got_v, got_i, want_v, want_i, group, s1):
     # the shapes' other instances: a thread per group at group 2 and 1,
     # and 4 rows a thread past 8 rows (at W = 5 too)
     (2, 2, 16, 2, 2, None, False), (3, 1, 16, 1, 1, 5, False),
-    (16, 2, 64, 16, 2, None, False), (12, 5, 32, 8, 2, 9, False)])
+    (16, 2, 64, 16, 2, None, False), (12, 5, 32, 8, 2, 9, False),
+    # granite-moe-3b-a800m's decode rows: G = 3 on 64-key pages, d = 64
+    (3, 2, 64, 16, 2, None, False), (3, 2, 64, 16, 2, 100, False)])
 def test_bacam_kernel_matches_plain(cuda, r, w, page, group, s1, window,
                                     ties):
     """Ragged and inert slots, table entries past kv_len on the trash
@@ -123,7 +125,13 @@ def test_bacam_kernel_matches_plain(cuda, r, w, page, group, s1, window,
     (1, 1, 64, 128, False, None, 4, (300, 0, 129, 1)),
     (1, 40, 64, 128, False, None, 4, (300, 0, 129, 17)),
     (4, 1, 64, 256, False, 100, 3, (600, 0, 257, 1)),
-    (2, 40, 64, 256, True, 30, 3, (600, 0, 257, 64))])
+    (2, 40, 64, 256, True, 30, 3, (600, 0, 257, 64)),
+    # granite-moe-3b-a800m's G = 3 (d = 64): decode rows (dense and
+    # binary), a verify chunk and a prefill chunk with padding rows
+    (3, 1, 64, 64, False, None, 16, (1000, 0, 65, 1)),
+    (3, 1, 64, 64, True, None, 16, (1000, 0, 65, 1)),
+    (3, 4, 64, 64, False, None, 16, None),
+    (3, 384, 64, 64, False, None, 7, (64, 0, 200, 384))])
 def test_flash_kernel_matches_plain(cuda, dtype, g, sq, d, page, binary,
                                     window, np_, lens):
     rng = np.random.default_rng(sq * 10 + g)
@@ -401,6 +409,82 @@ def test_contiguous_path_launches_kernels_never_plain(cuda, monkeypatch):
         # decode rows hold one position each, also with GQA rows folded
         assert btk.prefill_launches - chunks0 == (2 * n if chunk else 0)
         assert torch.isfinite(logits).all()
+
+
+def test_apply_moe_on_card_equals_cpu(cuda):
+    """One granite-moe-3b-a800m MoE layer at full width (d 1536, 40 of 48
+    experts, top-8, d_ff 512; f32 weights) on the card against the CPU:
+    routing (experts, buffer positions, keep mask) identical, outputs
+    within 1e-5, aux values within 1e-6, at one group (8 tokens) and at
+    eight (8 x 64)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+
+    cfg = get_config("granite-moe-3b-a800m", dtype="float32")
+    gen = torch.Generator().manual_seed(1)
+    p = {name: torch.randn(shape, generator=gen) * shape[-2]**-0.5
+         for name, (shape, _) in M.moe_shapes(cfg).items()}
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    for b, s in ((8, 1), (8, 64)):
+        x = torch.randn((b, s, cfg.d_model), generator=gen)
+        gt = M.group_size(b * s)
+        cap = M.capacity(cfg, gt)
+        want_r = M.route(p["router"], x.reshape(-1, gt, cfg.d_model), cfg,
+                         cap)
+        got_r = M.route(pc["router"],
+                        x.to(cuda).reshape(-1, gt, cfg.d_model), cfg, cap)
+        for name in ("eidx", "pos", "keep"):
+            assert torch.equal(getattr(got_r, name).cpu(),
+                               getattr(want_r, name)), name
+        got, got_aux = M.apply_moe(pc, x.to(cuda), cfg)
+        want, want_aux = M.apply_moe(p, x, cfg)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+        for k in want_aux:
+            torch.testing.assert_close(got_aux[k].cpu(), want_aux[k],
+                                       rtol=1e-6, atol=1e-6)
+
+
+def test_granite_smoke_paged_logits_on_card_equal_cpu(cuda):
+    """Smoke granite-moe-3b-a800m at G = 3 (6 heads on 2 kv heads, 8
+    experts padded to 48), f32: paged prefill and 3 decode steps on the
+    card (the paged kernels) against the CPU (their plain versions), both
+    fed the CPU's picks: logits within 1e-4, on dense and camformer."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import (cast_params, init_params, init_pools,
+                                    lm_decode_paged, lm_page_specs,
+                                    lm_prefill_paged)
+
+    b, s, page, np_ = 3, 20, 8, 6
+    table = torch.from_numpy(
+        (1 + np.arange(b * np_, dtype=np.int32)).reshape(b, np_))
+    lens = torch.tensor([20, 13, 0], dtype=torch.int32)
+    live = lens > 0
+    for backend in ("dense", "camformer"):
+        cfg = smoke_config("granite-moe-3b-a800m", attn_backend=backend,
+                           n_heads=6, n_kv_heads=2)
+        params = init_params(cfg, device="cpu", seed=0)
+        tokens = torch.randint(0, cfg.vocab, (b, s),
+                               generator=torch.Generator().manual_seed(2))
+        out, fed = {}, []
+        for dev in (torch.device("cpu"), cuda):
+            p = cast_params(params, torch.float32, dev)
+            pools = init_pools(lm_page_specs(cfg, 1 + b * np_, page, b), dev)
+            pt = table.to(dev)
+            lg, pools = lm_prefill_paged(
+                p, {"tokens": tokens.to(dev), "lens": lens.to(dev)}, pools,
+                pt, cfg)
+            logits, pos = [lg], lens.to(dev)
+            for step in range(3):
+                if dev.type == "cpu":
+                    fed.append(logits[-1].argmax(-1).to(torch.int32))
+                kvl = (pos + 1) * live.to(dev)
+                lg, pools = lm_decode_paged(p, fed[step].to(dev), pos, kvl,
+                                            pools, pt, cfg)
+                logits.append(lg)
+                pos = pos + live.to(dev)
+            out[dev.type] = torch.stack(logits).cpu()
+        torch.testing.assert_close(out["cuda"][:, live], out["cpu"][:, live],
+                                   rtol=1e-4, atol=1e-4)
 
 
 def test_keyed_draws_on_card_equal_cpu(cuda):

@@ -4,7 +4,10 @@ offsets, as the engine's continuous prefill does) and 4
 ``lm_decode_paged`` steps, logits to 1e-4, for ``camformer-bert``
 (G = 1) and ``mistral-nemo-12b`` (G = 4) smoke configs on ``dense``,
 ``camformer`` and the mixed ``dense,camformer`` stack, with the
-``prefill_chunk`` loop, and with qkv biases (``codeqwen1.5-7b``).
+``prefill_chunk`` loop, and with qkv biases (``codeqwen1.5-7b``); the
+MoE family at ``granite-moe-3b-a800m``'s G = 3 (6 heads on 2 kv heads)
+and ``moonshot-v1-16b-a3b`` smoke, and the text-only VLM backbone
+(``llava-next-mistral-7b`` smoke).
 
 Both sides are fed the same token ids (the reference's greedy picks), so
 one argmax near-tie cannot fork the two streams."""
@@ -25,10 +28,15 @@ from repro_torch.models import (from_jax_params, init_params, init_pools,
                                 lm_prefill_paged)
 
 
+# granite's GQA group at smoke width: G = 24 / 8 = 3
+OVERRIDES = {"granite-moe-3b-a800m": dict(n_heads=6, n_kv_heads=2)}
+
+
 def _configs(arch, backend, prefill_chunk=0):
     kw = ({"layer_backends": tuple(backend.split(","))} if "," in backend
           else {"attn_backend": backend})
     kw["prefill_chunk"] = prefill_chunk
+    kw.update(OVERRIDES.get(arch, {}))
     return j_smoke(arch, **kw), t_smoke(arch, **kw)
 
 
@@ -78,6 +86,12 @@ CASES = [(arch, backend, 0)
 CASES += [("camformer-bert", "camformer", 4), ("mistral-nemo-12b", "dense", 4)]
 # qkv biases
 CASES += [("codeqwen1.5-7b", "camformer", 0)]
+# the MoE family (G = 3, padded experts; no padding) and the VLM backbone
+CASES += [("granite-moe-3b-a800m", "dense", 0),
+          ("granite-moe-3b-a800m", "camformer", 0),
+          ("granite-moe-3b-a800m", "dense", 4),
+          ("moonshot-v1-16b-a3b", "camformer", 0),
+          ("llava-next-mistral-7b", "dense,camformer", 0)]
 
 
 @pytest.mark.parametrize("arch,backend,prefill_chunk", CASES)

@@ -1,7 +1,8 @@
 """Shared engine runs of the port's stream tests: the same requests,
 on the same weights, through the reference ``ServeEngine`` and the
 port's, at the f32 smoke widths (3 slots, 48-token slots, 8-token
-pages).  Not a test module: the ``test_torch_*`` files import it."""
+pages; 4 slots for an MoE config).  Not a test module: the
+``test_torch_*`` files import it."""
 
 import jax
 import numpy as np
@@ -20,6 +21,13 @@ from repro_torch.serving import SamplingParams as TSampling
 from repro_torch.serving import ServeEngine as TEngine
 
 ENGINE_KW = dict(max_batch=3, max_len=48, page_size=8)
+
+
+def engine_kw(cfg):
+    """ENGINE_KW, with 4 slots for an MoE config: the reference's MoE
+    dispatch asserts that a prefill batch's B*S tokens fill whole
+    64-token groups, which 3 slots of a 32-token bucket do not (96)."""
+    return dict(ENGINE_KW, max_batch=4) if cfg.n_experts else ENGINE_KW
 
 
 def backend_kw(backend):
@@ -61,17 +69,20 @@ def drive(eng, reqs, late):
 _JAX_RUNS = {}
 
 
-def jax_run(arch, backend, temperature=0.0, spec_k=0, n_pages=None):
-    """The reference engine's run (sync mode), once per configuration:
-    (params as numpy, requests, counters)."""
+def jax_run(arch, backend, temperature=0.0, spec_k=0, n_pages=None,
+            mode="sync", **overrides):
+    """The reference engine's run (sync mode unless asked), once per
+    configuration: (params as numpy, requests, counters).  ``overrides``
+    are config fields on top of the smoke config."""
     late = 3 if n_pages else 0
-    key = (arch, backend, temperature, spec_k, n_pages)
+    key = (arch, backend, temperature, spec_k, n_pages, mode,
+           tuple(sorted(overrides.items())))
     if key not in _JAX_RUNS:
-        cfg = j_smoke(arch, **backend_kw(backend))
+        cfg = j_smoke(arch, **backend_kw(backend), **overrides)
         md = get_model_def(cfg)
         params = j_init(md.specs(cfg), jax.random.PRNGKey(0))
-        eng = JEngine(md, cfg, params, mode="sync", n_pages=n_pages,
-                      spec_k=spec_k or None, **ENGINE_KW)
+        eng = JEngine(md, cfg, params, mode=mode, n_pages=n_pages,
+                      spec_k=spec_k or None, **engine_kw(cfg))
         reqs = requests(JRequest, JSampling, cfg.vocab, temperature, late)
         drive(eng, reqs, late)
         counters = dict(ticks=eng.ticks, readbacks=eng.readbacks,
@@ -83,14 +94,14 @@ def jax_run(arch, backend, temperature=0.0, spec_k=0, n_pages=None):
 
 
 def torch_run(arch, backend, params_np, mode, temperature=0.0, spec_k=0,
-              n_pages=None):
+              n_pages=None, **overrides):
     """The port's engine on the CPU over the reference's weights:
     (engine, requests) after draining."""
     late = 3 if n_pages else 0
-    cfg = t_smoke(arch, **backend_kw(backend))
+    cfg = t_smoke(arch, **backend_kw(backend), **overrides)
     eng = TEngine(cfg, from_jax_params(params_np, cfg, device="cpu"),
                   mode=mode, n_pages=n_pages, spec_k=spec_k or None,
-                  device="cpu", **ENGINE_KW)
+                  device="cpu", **engine_kw(cfg))
     reqs = requests(TRequest, TSampling, cfg.vocab, temperature, late)
     done = drive(eng, reqs, late)
     assert len(done) == len(reqs)
