@@ -1,4 +1,5 @@
-"""Run the PyTorch/CUDA port's serving path once on one NVIDIA card.
+"""Run the PyTorch/CUDA port's serving and training paths once on one
+NVIDIA card.
 
     python3 chip_smoke.py            # every phase, exits 0 only if all pass
     python3 chip_smoke.py --stage1-bounds   # the stage-1 fault check only
@@ -49,17 +50,32 @@ Phases, in order (each raises on failure; nothing is caught):
      ``dense``; ``llava-next-mistral-7b`` at full width cut to 4 layers,
      f32, through the contiguous steps with 576 patch embeddings and 320
      text tokens (kernel 4 for the prefill, kernel 3 for 16 decode
-     steps), held against its plain route on the card and on the CPU.
+     steps), held against its plain route on the card and on the CPU;
+  8. training: at f32 smoke width the train step (remat, camformer with
+     ``use_kernel``; camformer-bert and granite at G = 3) on the card
+     against the card's plain route (BA-CAM scores identical, loss and
+     gradients within 1e-6) and the CPU (loss 1e-5, gradients 1e-4);
+     ``camformer-bert`` at full width and depth (f32 masters, bf16
+     compute) through ``Trainer`` at 8 x 1024 tokens for 12 steps on
+     ``camformer`` with ``use_kernel`` (kernel 4 exactly 2 x 24 x 12
+     times: forward and recompute) and on ``dense``, every loss finite
+     and the last below the first, checkpoints every 6 steps (under
+     ``build/train_ckpt``, removed after) and a second ``Trainer``
+     resuming from the last; ``granite-moe-3b-a800m`` at full width cut
+     to 4 layers for 6 steps (the MoE backward); the flow of
+     ``examples/had_distill.py`` at its own width.
 
 Phase 3 also holds kernels 1, 2 (dense and binary) and 2b at granite's
-GQA width (8 kv heads, G = 3); phase 4 also runs granite smoke at G = 3
+GQA width (8 kv heads, G = 3), and kernel 4 at the train step's shape
+(128, 1024, 1024), bit-exact; phase 4 also runs granite smoke at G = 3
 card against CPU, and one full-width granite ``apply_moe`` layer card
 against CPU (routing identical, outputs within 1e-5).
 
 The line before the last is the ``kernels`` JSON object (one row per
 kernel and shape: the paged flash and contiguous stage-1 kernels have a
 second ``(sq>1)`` row for their prefill chunks, the paged flash kernel
-also a ``(binary)`` and a verify row; ``path`` names the runs that
+also a ``(binary)`` and a verify row, the BA-CAM matrix kernel a
+``(train)`` row at the train step's shape; ``path`` names the runs that
 launch it); the last line
 is ``{"ok": true, "device":
 {...}}``.  Without a CUDA card, or without the rest of the repository
@@ -1490,6 +1506,402 @@ def vlm_contiguous_phase():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training
+
+# the full-width train step: 8 rows of 1024 tokens (the paper's n), so
+# kernel 4 scores (8 x 16 kv heads, 1024, 1024) a layer and pass
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 1024, 12, 6
+TRAIN_SHAPE = "train_8x1024"
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 6
+TRAIN_ROW = "bacam_mvm (train)"
+
+
+def train_kernel_phase(flush):
+    """Kernel 4 at the camformer-bert train step's shape: (128, 1024,
+    1024), W = 2, bit-exact against its plain version, timed beside the
+    plain version and ``torch.bmm`` of the ±1 bf16 operands (4-byte
+    scores)."""
+    from repro_torch.core.bacam import unpack_bits
+    from repro_torch.kernels import bacam_mvm as bmvm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    bh, s, w, d = TRAIN_B * 16, TRAIN_S, 2, 64
+    q, k = (torch.randint(-2**31, 2**31 - 1, (bh, s, w), generator=gen,
+                          device=dev, dtype=torch.int32) for _ in range(2))
+    got = bmvm.bacam_mvm(q, k, d=d)
+    want = bmvm.bacam_scores_ref(q, k, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), \
+        "bacam_mvm at the training shape differs from its plain version"
+    del want
+    qf, kf = unpack_bits(q, d).to(torch.bfloat16), unpack_bits(
+        k, d).to(torch.bfloat16)
+    library = lambda: torch.bmm(qf, kf.transpose(1, 2),
+                                out_dtype=torch.float32)
+    assert torch.equal(library().to(torch.int32), got), \
+        "f32-output bmm yardstick is not exact"
+    outputs = bh * s * s
+    row = dict(
+        name=TRAIN_ROW, route="cuda",
+        path="train: camformer-bert camformer use_kernel (forward and "
+             "recompute, every layer); HAD student (binary, camformer)",
+        source="src/repro_torch/csrc/bacam_mvm.cu",
+        replaces="src/repro/kernels/bacam_mvm.py:62", max_abs_err=0.0,
+        ms=cuda_ms(lambda: bmvm.bacam_mvm(q, k, d=d), flush=flush),
+        plain_ms=cuda_ms(lambda: bmvm.bacam_scores_ref(q, k, d),
+                         flush=flush, n=10),
+        # packed operands read once (2,097,152 B), int32 scores written
+        # once (536,870,912 B); xor, popc and add per word of each score
+        **bound(2 * bh * s * w * 4 + outputs * 4,
+                3 * w * outputs / INT32_OP_PER_S),
+        library_ms=cuda_ms(library, flush=flush))
+    log(f"{TRAIN_ROW} ({bh}, {s}, {s}) W={w}: bit-exact; kernel "
+        f"{row['ms']:.6g} ms, plain {row['plain_ms']:.6g} ms, f32-output "
+        f"bmm {row['library_ms']:.6g} ms, bound {row['bound_ms']:.6g} ms")
+    return [row]
+
+
+def only_bacam_mvm(launches):
+    """No kernel but kernel 4 launched (the training path's only one)."""
+    return all(v == 0 for k, v in launches.items() if k != "bacam_mvm")
+
+
+@contextlib.contextmanager
+def recorded_scores():
+    """Record the integer BA-CAM score matrices of the binary and
+    camformer attention: the kernel route's (``kernels/ops.bacam_scores``,
+    reshaped to the plain layout by the caller) and the plain route's
+    (``core/bacam.bacam_scores``), in call order."""
+    from repro_torch.core import bacam
+    from repro_torch.kernels import ops
+
+    calls = []
+    saved = {mod: mod.bacam_scores for mod in (bacam, ops)}
+
+    def recorder(fn):
+        def rec(*a, **kw):
+            out = fn(*a, **kw)
+            calls.append(out.detach().reshape(-1, out.shape[-1]).cpu())
+            return out
+        return rec
+
+    for mod, fn in saved.items():
+        mod.bacam_scores = recorder(fn)
+    try:
+        yield calls
+    finally:
+        for mod, fn in saved.items():
+            mod.bacam_scores = fn
+
+
+TRAIN_PARITY = (("camformer-bert", {}),
+                ("granite-moe-3b-a800m", dict(n_heads=6, n_kv_heads=2)))
+
+
+def train_parity_phase():
+    """The train step's loss and gradients (f32 smoke width, remat, the
+    camformer backend) on the card: kernel route (``use_kernel``) against
+    the card's plain route (integer scores identical, loss and every
+    gradient leaf within 1e-6), and against the CPU (loss within 1e-5,
+    gradient leaves within 1e-4).  ``camformer-bert`` (G = 1) and
+    ``granite-moe-3b-a800m`` (G = 3, the MoE backward)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.steps import make_value_and_grad
+    from repro_torch.models import cast_params, get_model_def, init_params
+    from repro_torch.models.module import tree_leaves
+
+    out = {}
+    for arch, overrides in TRAIN_PARITY:
+        cfg = smoke_config(arch, attn_backend="camformer", use_kernel=True,
+                           **overrides)
+        params = init_params(cfg, device="cpu", seed=SEED)
+        rng = np.random.default_rng(SEED)
+        batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32)))
+                 for k in ("tokens", "labels")}
+
+        def run(c, dev):
+            with recorded_scores() as scores:
+                loss, _, grads = make_value_and_grad(get_model_def(c), c)(
+                    cast_params(params, torch.float32, dev),
+                    {k: v.to(dev) for k, v in batch.items()})
+            return loss.cpu(), [g.cpu() for g in tree_leaves(grads)], scores
+
+        reset_launches()
+        with plain_calls_on_card() as plain:
+            kernel = run(cfg, torch.device("cuda"))
+        launches = read_launches()
+        assert plain == {}, f"train parity {arch}: plain on the card {plain}"
+        assert launches["bacam_mvm"] == 2 * cfg.n_layers, launches
+        assert only_bacam_mvm(launches), launches
+        route = run(cfg.replace(use_kernel=False), torch.device("cuda"))
+        cpu = run(cfg, torch.device("cpu"))
+        assert len(kernel[2]) == len(route[2]) == 2 * cfg.n_layers
+        assert all(torch.equal(a, b) for a, b in zip(kernel[2], route[2])), \
+            f"train parity {arch}: kernel scores differ from the plain route"
+        errs = {}
+        for name, other, tol in (("card plain route", route, 1e-6),
+                                 ("CPU", cpu, (1e-5, 1e-4))):
+            lt, gt = tol if isinstance(tol, tuple) else (tol, tol)
+            e_loss, ok_loss = close(kernel[0], other[0], lt)
+            e_grad = max(close(a, b, gt)[0] for a, b in
+                         zip(kernel[1], other[1]))
+            ok_grad = all(close(a, b, gt)[1] for a, b in
+                          zip(kernel[1], other[1]))
+            errs[name] = dict(loss=e_loss, grad=e_grad)
+            assert ok_loss and ok_grad, f"train parity {arch}: {name} {errs}"
+        assert torch.isfinite(kernel[0]), kernel[0]
+        out[arch] = errs
+        log(f"train parity {arch} smoke camformer use_kernel (G = "
+            f"{cfg.n_heads // cfg.n_kv_heads}): scores identical to the "
+            f"plain route; max abs err {json.dumps(errs)} (tol 1e-6 plain "
+            f"route, 1e-5 loss / 1e-4 grads CPU)")
+    return out
+
+
+def train_run(cfg, *, ckpt_dir, total_steps, ckpt_every, profile=False):
+    """``Trainer`` over ``cfg`` at TRAIN_B x TRAIN_S on the card (cosine
+    schedule, warmup 2, f32 masters, seeded init and data), launches
+    counted and plain versions refused; returns (trainer, state, launches,
+    wall seconds, peak GB[, profile of one more step])."""
+    from repro_torch.models import get_model_def
+    from repro_torch.train.data import SyntheticLMData
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    data = SyntheticLMData(cfg, TRAIN_SHAPE, seed=SEED, device="cuda")
+    tcfg = TrainerConfig(total_steps=total_steps, ckpt_every=ckpt_every,
+                         ckpt_dir=str(ckpt_dir), keep=1, log_every=1,
+                         warmup=2, seed=SEED)
+    trainer = Trainer(get_model_def(cfg), cfg, data, tcfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_calls_on_card() as plain:
+        reset_launches()
+        t0 = time.perf_counter()
+        state = trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    assert plain == {}, f"train {cfg.name}: plain versions on the card {plain}"
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = None
+    if profile:  # one more step, apart from the counted ones
+        batch = data.batch(total_steps)
+
+        def one_step():
+            _, metrics = trainer.step_fn(state, batch)
+            float(metrics["loss"])
+
+        prof = profiled(one_step)
+    return trainer, state, launches, wall, peak, prof
+
+
+def train_phase():
+    """camformer-bert at full width and depth (24 layers, d 1024, bf16
+    compute, f32 masters, remat) trained through ``Trainer`` at 8 x 1024
+    tokens for TRAIN_STEPS steps on ``camformer`` with ``use_kernel`` and
+    on ``dense``: every loss finite and the last below the first, kernel
+    4 launched 2 x 24 x steps times on camformer (forward and recompute)
+    and never on dense, no plain version on the card, checkpoints every
+    TRAIN_CKPT_EVERY steps and a second Trainer resuming from the last.
+    Returns the camformer runs' launches."""
+    import shutil
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models import count_params
+
+    SHAPES[TRAIN_SHAPE] = dict(seq_len=TRAIN_S, global_batch=TRAIN_B,
+                               kind="train")
+    ckpt_root = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    runs, lines = [], {}
+    try:
+        for backend in ("camformer", "dense"):
+            cfg = get_config("camformer-bert", attn_backend=backend,
+                             use_kernel=backend == "camformer")
+            every = TRAIN_CKPT_EVERY if backend == "camformer" else 10**9
+            trainer, state, launches, wall, peak, prof = train_run(
+                cfg, ckpt_dir=ckpt_root / backend, total_steps=TRAIN_STEPS,
+                ckpt_every=every, profile=True)
+            log_ = trainer.metrics_log
+            losses = [r["loss"] for r in log_]
+            assert len(losses) == TRAIN_STEPS, log_
+            assert all(math.isfinite(x) for x in losses), losses
+            assert losses[-1] < losses[0], losses
+            want = 2 * cfg.n_layers * TRAIN_STEPS if cfg.use_kernel else 0
+            assert launches["bacam_mvm"] == want, launches
+            assert only_bacam_mvm(launches), launches
+            step_s = statistics.median(r["step_time_s"] for r in log_)
+            line = dict(
+                layers=cfg.n_layers, params=count_params(state["params"]),
+                batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
+                wall_s=wall, median_step_s=step_s,
+                tokens_per_s=TRAIN_B * TRAIN_S / step_s, peak_mem_gb=peak,
+                first_loss=losses[0], last_loss=losses[-1],
+                losses=losses, lr_last=log_[-1]["lr"],
+                grad_norm_last=log_[-1]["grad_norm"],
+                kernel4_launches=launches["bacam_mvm"],
+                events=[list(e) for e in trainer.events])
+            if backend == "camformer":
+                from repro_torch.train.checkpoint import latest_step
+
+                assert latest_step(str(ckpt_root / backend)) == TRAIN_STEPS
+                runs.append({TRAIN_ROW: launches["bacam_mvm"]})
+                del state
+                torch.cuda.empty_cache()
+                # a second Trainer resumes from the last checkpoint
+                trainer2, state, launches2, _, _, _ = train_run(
+                    cfg, ckpt_dir=ckpt_root / backend,
+                    total_steps=TRAIN_STEPS + 2, ckpt_every=every)
+                assert trainer2.events[0] == (
+                    TRAIN_STEPS, "resume", f"restored step_{TRAIN_STEPS}"), \
+                    trainer2.events
+                assert [r["step"] for r in trainer2.metrics_log] == [
+                    TRAIN_STEPS + 1, TRAIN_STEPS + 2], trainer2.metrics_log
+                assert launches2["bacam_mvm"] == 2 * cfg.n_layers * 2
+                assert all(math.isfinite(r["loss"])
+                           for r in trainer2.metrics_log)
+                runs.append({TRAIN_ROW: launches2["bacam_mvm"]})
+                line["resume"] = dict(
+                    event=list(trainer2.events[0]),
+                    losses=[r["loss"] for r in trainer2.metrics_log])
+            del state
+            torch.cuda.empty_cache()
+            lines[backend] = line
+            log(f"train camformer-bert {backend}"
+                f"{' use_kernel' if cfg.use_kernel else ''} bf16 full width: "
+                + json.dumps(line))
+            log(f"profile train camformer-bert {backend} (one step): "
+                + json.dumps(prof))
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    return runs
+
+
+def moe_train_phase():
+    """granite-moe-3b-a800m at full width (40 experts padded to 48, top-8,
+    G = 3), cut to MOE_TRAIN_LAYERS layers, ``dense``, bf16 compute and
+    f32 masters, MOE_TRAIN_STEPS steps of ``make_train_step`` at 8 x 1024
+    tokens: every loss finite; prints the aux loss and drop share."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.models import count_params, get_model_def
+    from repro_torch.train.data import SyntheticLMData
+
+    cfg = get_config("granite-moe-3b-a800m", n_layers=MOE_TRAIN_LAYERS,
+                     attn_backend="dense")
+    step_fn, opt = make_train_step(get_model_def(cfg), cfg, warmup=2,
+                                   total_steps=MOE_TRAIN_STEPS)
+    state = init_state(cfg, opt, seed=SEED, device="cuda")
+    data = SyntheticLMData(cfg, TRAIN_SHAPE, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, times = [], []
+    with plain_calls_on_card() as plain:
+        for step in range(MOE_TRAIN_STEPS):
+            batch = data.batch(step)
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            times.append(time.perf_counter() - t0)
+            rows.append({k: float(v) for k, v in metrics.items()})
+            assert math.isfinite(loss), rows
+    assert plain == {}, plain
+    assert all(math.isfinite(v) for r in rows for v in r.values()), rows
+    assert all(r["moe_aux_loss"] > 0 for r in rows), rows
+    step_s = statistics.median(times)
+    line = dict(layers=cfg.n_layers, params=count_params(state["params"]),
+                batch=TRAIN_B, seq=TRAIN_S, steps=MOE_TRAIN_STEPS,
+                median_step_s=step_s, tokens_per_s=TRAIN_B * TRAIN_S / step_s,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                losses=[r["loss"] for r in rows],
+                moe_aux_loss=[r["moe_aux_loss"] for r in rows],
+                moe_drop_frac=[r["moe_drop_frac"] for r in rows])
+    del state
+    torch.cuda.empty_cache()
+    log("train granite-moe-3b-a800m dense bf16 full width, "
+        f"{MOE_TRAIN_LAYERS} layers: " + json.dumps(line))
+    return line
+
+
+HAD_SHAPE = "had"
+
+
+def had_phase():
+    """The HAD recipe of ``examples/had_distill.py`` through the port's
+    modules on the card, at that example's width (d 128, 2 layers, vocab
+    512, 8 x 128 tokens; ``use_kernel``): 80 dense teacher steps (AdamW,
+    constant lr 1e-3), eval, 40 ``binary`` student steps at lr 5e-4 from
+    the teacher, eval of the student on binary and on camformer with
+    single-stage (stage1_k 8) and two-stage (stage1_k 2) top-k.  Eval CE
+    is the mean over 4 held-out batches.  Asserts every value finite and
+    the launches of kernel 4 (twice a layer a student step, once a layer
+    an eval batch); returns the launches."""
+    from repro_torch.configs import SHAPES, smoke_config
+    from repro_torch.launch.steps import make_value_and_grad
+    from repro_torch.models import get_model_def, init_params
+    from repro_torch.train.data import SyntheticLMData
+    from repro_torch.train.optimizer import adamw, constant_schedule
+
+    SHAPES[HAD_SHAPE] = dict(seq_len=128, global_batch=8, kind="train")
+    base = smoke_config("codeqwen1.5-7b", d_model=128, n_layers=2, n_heads=4,
+                        n_kv_heads=4, head_dim=32, vocab=512, k_top=16,
+                        group_size=8, use_kernel=True)
+    data = SyntheticLMData(base, HAD_SHAPE, seed=0, device="cuda")
+    held = [data.batch(5000 + i) for i in range(4)]
+
+    def train(cfg, params, steps, lr, start):
+        opt = adamw(constant_schedule(lr))
+        state = opt.init(params)
+        vg = make_value_and_grad(get_model_def(cfg), cfg)
+        for i in range(steps):
+            _, _, grads = vg(params, data.batch(start + i))
+            params, state, _ = opt.update(grads, state, params)
+        return params
+
+    def eval_ce(cfg, params):
+        md = get_model_def(cfg)
+        with torch.no_grad():
+            return sum(float(md.loss(params, b, cfg)[1]["ce"])
+                       for b in held) / len(held)
+
+    t0 = time.perf_counter()
+    with plain_calls_on_card() as plain:
+        reset_launches()
+        params = init_params(base, device="cuda", seed=0)
+        params = train(base, params, 80, 1e-3, 0)
+        ce = {"dense teacher": eval_ce(base, params)}
+        bin_cfg = base.replace(attn_backend="binary")
+        ce["binary Q/K, zero-shot"] = eval_ce(bin_cfg, params)
+        student = train(bin_cfg, params, 40, 5e-4, 80)
+        ce["binary Q/K after HAD fine-tune"] = eval_ce(bin_cfg, student)
+        ce["HAD student + single-stage top-k"] = eval_ce(
+            bin_cfg.replace(attn_backend="camformer", stage1_k=8), student)
+        ce["HAD student + two-stage top-2/grp"] = eval_ce(
+            bin_cfg.replace(attn_backend="camformer", stage1_k=2), student)
+        launches = read_launches()
+    assert plain == {}, plain
+    assert all(math.isfinite(v) for v in ce.values()), ce
+    n = base.n_layers
+    assert launches["bacam_mvm"] == 40 * 2 * n + 4 * len(held) * n, launches
+    assert only_bacam_mvm(launches), launches
+    log(f"HAD recipe (examples/had_distill.py flow, {time.perf_counter() - t0:.1f}"
+        f" s): eval CE {json.dumps(ce)}")
+    return {TRAIN_ROW: launches["bacam_mvm"]}
+
+
+def training_phase():
+    """Phase 8: train-step parity, full-width camformer-bert training
+    with resume, the granite MoE backward, the HAD recipe.  Returns the
+    launches of the counted runs."""
+    train_parity_phase()
+    runs = train_phase()
+    moe_train_phase()
+    runs.append(had_phase())
+    return runs
+
+
 def kernel_instance(mangled):
     """``name<N, ...>`` of a mangled ``..._kernel<N, ...>`` (Itanium: a name
     is its length, then its characters; int template arguments
@@ -1584,7 +1996,8 @@ def main():
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     log(f"launch floor: {launch_floor(flush):.6g} ms (a one-element zero_()"
         f" under the kernels' timing: L2 flushed, CUDA events)")
-    rows = kernel_phase(flush) + contiguous_kernel_phase(flush)
+    rows = (kernel_phase(flush) + contiguous_kernel_phase(flush)
+            + train_kernel_phase(flush))
     del flush
     log(f"gqa3 parity: {json.dumps(gqa3_kernel_phase())}")
     parity_phase()
@@ -1605,8 +2018,10 @@ def main():
          for k, v in moe_runs.items()},
         vlm={n: c for n, c in vlm.items() if c})))
     runs += list(moe_runs.values()) + [vlm]
+    runs += training_phase()
+    log(f"elapsed {time.perf_counter() - t0:.1f}s: training")
     for row in rows:  # launches over every path run
-        row["launches"] = sum(run[row["name"]] for run in runs)
+        row["launches"] = sum(run.get(row["name"], 0) for run in runs)
         if row["path"] != "none":
             assert row["launches"] > 0, row
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):

@@ -48,7 +48,7 @@ class AttentionSpec:
     # raise in core/bacam.bacam_scores (None/0.0 is the exact integer path)
     adc_bits: int | None = None
     noise_sigma: float = 0.0
-    # straight-through training binarization: not ported, raises
+    # straight-through training binarization (core/binarize.sign_ste)
     trainable_binarize: bool = False
     # route binary scoring through the BA-CAM CUDA kernel
     use_kernel: bool = False

@@ -1,13 +1,15 @@
-"""The decoder-only LM families (dense, MoE, VLM) on the paged serving
-and contiguous-cache paths, in PyTorch."""
+"""The decoder-only LM families (dense, MoE, VLM) in PyTorch: the
+training loss, the paged serving path and the contiguous-cache path."""
 
-from repro_torch.models.convert import from_jax_params  # noqa: F401
+from repro_torch.models.convert import (from_jax_params,  # noqa: F401
+                                        from_jax_state)
 from repro_torch.models.module import (cast_params,  # noqa: F401
                                        count_params, init_params)
 from repro_torch.models.registry import get_model_def  # noqa: F401
 from repro_torch.models.transformer import (ModelDef,  # noqa: F401
                                             dtype_of, init_pools,
                                             lm_cache_specs, lm_decode,
-                                            lm_decode_paged, lm_page_specs,
+                                            lm_decode_paged, lm_loss,
+                                            lm_page_specs,
                                             lm_prefill, lm_prefill_paged,
                                             lm_verify_paged, make_model_def)

@@ -1,11 +1,13 @@
-"""Shared model layers: norms, RoPE, the gated MLP, embeddings."""
+"""Shared model layers: norms, RoPE, the gated MLP, embeddings and the
+chunked cross-entropy loss."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["apply_norm", "rope", "apply_mlp", "embed_lookup"]
+__all__ = ["apply_norm", "rope", "apply_mlp", "embed_lookup",
+           "head_matrix", "chunked_cross_entropy"]
 
 
 def apply_norm(p, x, cfg, eps: float = 1e-6):
@@ -53,3 +55,53 @@ def apply_mlp(p, x, cfg):
 
 def embed_lookup(p, tokens, cfg, dtype):
     return p["tok"].to(dtype)[tokens.long()]
+
+
+def head_matrix(embed_params, cfg, dtype):
+    """The (d, V_pad) output projection in ``dtype`` (the transposed
+    token embedding when tied)."""
+    if cfg.tie_embeddings:
+        return embed_params["tok"].to(dtype).T
+    return embed_params["head"].to(dtype)
+
+
+def chunked_cross_entropy(x, embed_params, labels, cfg, *, loss_mask=None,
+                          chunk: int = 512, z_loss: float = 1e-4):
+    """Mean CE over sequence chunks (the reference's chunking: ``chunk``
+    positions at a time, then the remainder), so the float32 logits of the
+    whole sequence are never live at once in the forward.
+
+    x: (B, S, d); labels: (B, S) int.  Per chunk the logits are computed
+    in x's dtype and taken to float32, vocab-padding columns get -1e9,
+    and the loss adds ``z_loss * logsumexp**2``.  Returns (loss, {"ce",
+    "tokens"}): loss and ce are sums over the masked positions divided by
+    their count (at least 1).
+    """
+    b, s, _ = x.shape
+    head = head_matrix(embed_params, cfg, x.dtype)
+    if loss_mask is None:
+        loss_mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+    chunk = min(chunk, s)
+    n_chunks = s // chunk
+    bounds = [(i * chunk, (i + 1) * chunk) for i in range(n_chunks)]
+    if s > n_chunks * chunk:
+        bounds.append((n_chunks * chunk, s))
+    pad_ok = None
+    if head.shape[-1] > cfg.vocab:  # mask vocab-padding columns
+        pad_ok = torch.arange(head.shape[-1], device=x.device) < cfg.vocab
+    tot = ce_tot = cnt = 0.0
+    for c0, c1 in bounds:
+        logits = (x[:, c0:c1] @ head).to(torch.float32)  # (B, c, V_pad)
+        if pad_ok is not None:
+            logits = torch.where(pad_ok, logits,
+                                 torch.full_like(logits, -1e9))
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels[:, c0:c1, None].long())[..., 0]
+        mc = loss_mask[:, c0:c1].to(torch.float32)
+        ce = ((lse - gold) * mc).sum()
+        tot = tot + (ce + (z_loss * lse**2 * mc).sum())
+        ce_tot = ce_tot + ce
+        cnt = cnt + mc.sum()
+    cnt = torch.clamp(cnt, min=1.0)
+    return tot / cnt, {"ce": ce_tot / cnt, "tokens": cnt}

@@ -27,7 +27,8 @@ from repro_torch import resolve_device
 from repro_torch.models.moe import moe_shapes
 from repro_torch.models.registry import get_model_def
 
-__all__ = ["block_shapes", "init_params", "cast_params", "count_params"]
+__all__ = ["block_shapes", "init_params", "cast_params", "count_params",
+           "tree_leaves", "tree_map"]
 
 
 def _check_supported(cfg):
@@ -100,17 +101,35 @@ def init_params(cfg, generator: torch.Generator | None = None,
 def cast_params(params, dtype, device=None):
     """Compute-precision copy: every floating leaf cast to ``dtype`` (and
     moved to ``device`` when given), once, before serving."""
-    if isinstance(params, dict):
-        return {k: cast_params(v, dtype, device) for k, v in params.items()}
-    if isinstance(params, (list, tuple)):
-        return [cast_params(v, dtype, device) for v in params]
-    t = params if device is None else params.to(device)
-    return t.to(dtype) if t.is_floating_point() else t
+    def cast(t):
+        t = t if device is None else t.to(device)
+        return t.to(dtype) if t.is_floating_point() else t
+
+    return tree_map(cast, params)
 
 
 def count_params(params) -> int:
-    if isinstance(params, dict):
-        return sum(count_params(v) for v in params.values())
-    if isinstance(params, (list, tuple)):
-        return sum(count_params(v) for v in params)
-    return params.numel()
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a tree of dicts (keys in sorted order, as
+    ``jax.tree.leaves`` orders them) and lists."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of
+    ``rest``), keeping the structure; leaves are visited in
+    ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)

@@ -1,13 +1,18 @@
-"""Decoder-only transformer LM (dense / GQA / MoE): the serving forward
-over paged KV pools and the contiguous-cache prefill/decode.
+"""Decoder-only transformer LM (dense / GQA / MoE): the training loss,
+the serving forward over paged KV pools and the contiguous-cache
+prefill/decode.
 
 The layer stack is a Python loop over the per-layer parameter dicts and
 per-layer pool or cache dicts (uniform and mixed ``layer_backends``
 stacks alike); each layer binds its own backend
-(``cfg.backend_for(layer)``).  A config with ``n_experts`` runs each
-block's FFN through models/moe.py.  ``make_model_def`` bundles the entry
-points as the reference's ``ModelDef`` does; models/vlm.py reuses them
-with patch embeddings prepended.
+(``cfg.backend_for(layer)``).  On the train path (no caches), under
+autograd with ``cfg.remat == "full"``, each block runs in
+``torch.utils.checkpoint``: its activations are recomputed in the
+backward pass, as the reference's ``jax.checkpoint`` of the scanned
+block.  A config with ``n_experts`` runs each block's FFN through
+models/moe.py.  ``make_model_def`` bundles
+the entry points as the reference's ``ModelDef`` does; models/vlm.py
+reuses them with patch embeddings prepended.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.backend import backends_for
 from repro_torch.models import layers as L
@@ -22,9 +28,9 @@ from repro_torch.models.attention import attention_block
 from repro_torch.models.moe import apply_moe
 
 __all__ = ["ModelDef", "make_model_def", "dtype_of", "lm_cache_specs",
-           "lm_page_specs", "init_pools", "lm_hidden", "lm_prefill",
-           "lm_decode", "lm_prefill_paged", "lm_verify_paged",
-           "lm_decode_paged"]
+           "lm_page_specs", "init_pools", "lm_hidden", "lm_loss",
+           "lm_prefill", "lm_decode", "lm_prefill_paged",
+           "lm_verify_paged", "lm_decode_paged"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -60,13 +66,15 @@ def init_pools(specs, device) -> list:
 
 class ModelDef(NamedTuple):
     """The entry points a family gives its callers, as the reference's
-    ``ModelDef`` bundles them: the contiguous-cache steps the launch
-    steps call, and the paged-serving interface ``ServeEngine`` needs
-    (None for a family without a paged cache).  The reference's
-    training fields (``specs``, ``loss``) wait for the train step.
+    ``ModelDef`` bundles them: the training loss and the contiguous-cache
+    steps the launch steps call, and the paged-serving interface
+    ``ServeEngine`` needs (None for a family without a paged cache).  The
+    reference's ``specs`` has no counterpart: ``models.init_params(cfg)``
+    builds the parameters.
 
       prefill(params, batch, caches, cfg) -> (logits, caches)
       decode(params, tokens, pos, kv_len, caches, cfg) -> (logits, caches)
+      loss(params, batch, cfg) -> (loss, aux)
       page_specs(cfg, n_pages, page_size, max_batch) -> per-layer specs
       prefill_paged(params, batch, pools, table, cfg) -> (logits, pools)
       decode_paged(params, tokens, pos, kv_len, pools, table, cfg[, base])
@@ -75,6 +83,7 @@ class ModelDef(NamedTuple):
 
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
+    loss: Callable[..., Any]
     page_specs: Optional[Callable[..., Any]] = None
     prefill_paged: Optional[Callable[..., Any]] = None
     decode_paged: Optional[Callable[..., Any]] = None
@@ -82,7 +91,7 @@ class ModelDef(NamedTuple):
 
 
 def make_model_def() -> ModelDef:
-    return ModelDef(prefill=lm_prefill, decode=lm_decode,
+    return ModelDef(prefill=lm_prefill, decode=lm_decode, loss=lm_loss,
                     page_specs=lm_page_specs, prefill_paged=lm_prefill_paged,
                     decode_paged=lm_decode_paged,
                     verify_paged=lm_verify_paged)
@@ -105,16 +114,18 @@ def _apply_block(p, x, cfg, *, positions, cache, cache_index, kv_len,
     return x + ff, cache, aux
 
 
-def lm_hidden(params, tokens, cfg, *, positions=None, caches, kv_len=None,
-              page_table=None, cache_index=None, scale_base=None,
-              prefix_embeds=None):
-    """tokens (B, S) -> (final hidden states (B, P + S, d), caches, aux);
-    caches (one dict per layer, paged pools or contiguous caches) are
-    written in place.  ``prefix_embeds`` (B, P, d) (the VLM's patch
-    embeddings) are prepended to the token embeddings; ``positions``
-    defaults to arange(P + S) for every row.  aux holds the per-layer
-    means of the MoE FFN's ``moe_aux_loss`` and ``moe_drop_frac``
-    (float32 scalars, 0 for a dense stack)."""
+def lm_hidden(params, tokens, cfg, *, positions=None, caches=None,
+              kv_len=None, page_table=None, cache_index=None,
+              scale_base=None, prefix_embeds=None):
+    """tokens (B, S) -> (final hidden states (B, P + S, d), caches, aux).
+
+    ``caches`` (one dict per layer, paged pools or contiguous caches) are
+    written in place; None (training) threads no cache.
+    ``prefix_embeds`` (B, P, d) (the VLM's patch embeddings) are
+    prepended to the token embeddings; ``positions`` defaults to
+    arange(P + S) for every row.  aux holds the per-layer means of the
+    MoE FFN's ``moe_aux_loss`` and ``moe_drop_frac`` (float32 scalars, 0
+    for a dense stack)."""
     dt = dtype_of(cfg)
     x = L.embed_lookup(params["embed"], tokens, cfg, dt)
     if prefix_embeds is not None:
@@ -123,12 +134,24 @@ def lm_hidden(params, tokens, cfg, *, positions=None, caches, kv_len=None,
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device)[None].expand(b, s)
+    # the train path (no caches) recomputes each block in the backward
+    remat = (caches is None and cfg.remat == "full"
+             and torch.is_grad_enabled())
     aux_sum = torch.zeros(2, dtype=torch.float32, device=x.device)
     for i, bk in enumerate(backends_for(cfg)):
-        x, caches[i], aux = _apply_block(
-            params["blocks"][i], x, cfg, positions=positions,
-            cache=caches[i], cache_index=cache_index, kv_len=kv_len,
-            page_table=page_table, scale_base=scale_base, backend=bk)
+        block_args = (params["blocks"][i], x, cfg)
+        block_kw = dict(positions=positions,
+                        cache=None if caches is None else caches[i],
+                        cache_index=cache_index, kv_len=kv_len,
+                        page_table=page_table, scale_base=scale_base,
+                        backend=bk)
+        if remat:
+            x, cache, aux = checkpoint(_apply_block, *block_args,
+                                       use_reentrant=False, **block_kw)
+        else:
+            x, cache, aux = _apply_block(*block_args, **block_kw)
+        if caches is not None:
+            caches[i] = cache
         if aux:
             aux_sum = aux_sum + torch.stack([aux["moe_aux_loss"],
                                              aux["moe_drop_frac"]])
@@ -137,14 +160,26 @@ def lm_hidden(params, tokens, cfg, *, positions=None, caches, kv_len=None,
     return L.apply_norm(params["ln_f"], x, cfg), caches, aux
 
 
+def lm_loss(params, batch, cfg):
+    """Causal LM loss. batch: tokens (B, S), labels (B, S) and optional
+    loss_mask (B, S).  Returns (loss, aux): the chunked cross entropy
+    (models/layers.py), plus ``0.01 * moe_aux_loss`` for an MoE stack;
+    aux holds ``ce``, ``tokens``, ``moe_aux_loss`` and
+    ``moe_drop_frac``."""
+    x, _, aux = lm_hidden(params, batch["tokens"], cfg)
+    loss, stats = L.chunked_cross_entropy(
+        x, params["embed"], batch["labels"], cfg,
+        loss_mask=batch.get("loss_mask"))
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux["moe_aux_loss"]
+    stats.update(aux)
+    return loss, stats
+
+
 def _head_logits(params, last, cfg):
     """Vocabulary logits (..., V_pad) float32 for final hidden states
     (..., d): computed in the compute type, vocab pad columns at -1e9."""
-    dt = last.dtype
-    if cfg.tie_embeddings:
-        head = params["embed"]["tok"].to(dt).T
-    else:
-        head = params["embed"]["head"].to(dt)
+    head = L.head_matrix(params["embed"], cfg, last.dtype)
     logits = (last @ head).to(torch.float32)
     if logits.shape[-1] > cfg.vocab:  # vocab-padding columns never sampled
         logits[..., cfg.vocab:] = -1e9

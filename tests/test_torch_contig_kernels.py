@@ -356,8 +356,13 @@ def test_attention_masks_and_reference_helpers():
 def test_unported_options_raise():
     q = torch.zeros((1, 2, 4, 32))
     for spec in (t_attn.AttentionSpec(mode="camformer", adc_bits=6),
-                 t_attn.AttentionSpec(mode="binary", noise_sigma=0.01),
-                 t_attn.AttentionSpec(mode="camformer",
-                                      trainable_binarize=True)):
+                 t_attn.AttentionSpec(mode="binary", noise_sigma=0.01)):
         with pytest.raises(NotImplementedError):
             t_attn.attention(q, q, q, spec)
+    # trainable binarization is ported (core/binarize.sign_ste): same
+    # forward as the hard sign
+    q = torch.randn((1, 2, 4, 32), generator=torch.Generator().manual_seed(0))
+    spec = t_attn.AttentionSpec(mode="camformer", k_top=2, group_size=2)
+    assert torch.equal(
+        t_attn.attention(q, q, q, spec.replace(trainable_binarize=True)),
+        t_attn.attention(q, q, q, spec))
