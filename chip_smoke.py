@@ -63,7 +63,22 @@ Phases, in order (each raises on failure; nothing is caught):
      ``build/train_ckpt``, removed after) and a second ``Trainer``
      resuming from the last; ``granite-moe-3b-a800m`` at full width cut
      to 4 layers for 6 steps (the MoE backward); the flow of
-     ``examples/had_distill.py`` at its own width.
+     ``examples/had_distill.py`` at its own width;
+  9. the gateway: ``camformer-bert`` as in phase 5 behind
+     ``serve_background`` (HTTP/SSE over local sockets, the engine on
+     the runner thread) on ``camformer`` and ``dense``: (a) a greedy and
+     a keyed request whose SSE streams equal a second fresh engine's
+     in-process ``stream()`` token for token; (b) 8 clients 50 ms apart
+     (phase 5's prompts, 32 new tokens), every request ending on
+     ``length``, no tick error, one readback a tick, the pool balanced,
+     more than one prefill tick, exact launch counts (kernel 1 = 24 x
+     decode ticks; kernel 2 = 24 x decode ticks and 2b = 24 x prefill
+     ticks on ``dense``) and no plain version on the card; then the
+     endpoints, and tokens/s, TTFT and TPOT beside the same requests
+     served in process on this thread; (c) on ``dense``, a
+     ``gateway.disconnect`` storm dropping 2 of 6 streams, cancelled
+     and freed, and a fresh request after it.  The main thread does
+     HTTP only while a runner thread drives the card.
 
 Phase 3 also holds kernels 1, 2 (dense and binary) and 2b at granite's
 GQA width (8 kv heads, G = 3), and kernel 4 at the train step's shape
@@ -352,7 +367,7 @@ def kernel_phase(flush):
     ops = 3 * keys * hkv * (d // 32)  # xor, popc, add per word
     ms = cuda_ms(kern, flush=flush)
     rows.append(dict(
-        name="bacam_paged_topk_stage1", route="cuda", path="paged",
+        name="bacam_paged_topk_stage1", route="cuda", path="paged, gateway",
         source="src/repro_torch/csrc/bacam_decode.cu",
         replaces="src/repro/kernels/bacam_decode.py:137",
         max_abs_err=0.0, ms=ms, plain_ms=cuda_ms(plain, flush=flush),
@@ -443,7 +458,7 @@ def kernel_phase(flush):
         rows.append(dict(
             name=name, route="cuda",
             path=("binary+spec" if binary else
-                  "spec" if sq == VERIFY_M else "paged"),
+                  "spec" if sq == VERIFY_M else "paged, gateway"),
             source="src/repro_torch/csrc/paged_flash_decode.cu",
             replaces="src/repro/kernels/paged_flash_decode.py:228",
             max_abs_err=err, ms=cuda_ms(kern, flush=flush),
@@ -1902,6 +1917,291 @@ def training_phase():
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the network gateway
+
+GATEWAY_GAP_S = 0.05  # live traffic: one client every 50 ms
+GATEWAY_KEYED = dict(temperature=0.9, top_k=40)
+
+
+def gateway_engine(cfg, faults=None):
+    """A fresh ``camformer-bert`` engine at phase 5's geometry (8 slots,
+    1024 tokens, 64-token pages, overlap), seeded weights."""
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeEngine
+
+    params = init_params(cfg, device="cuda", seed=SEED)
+    return ServeEngine(cfg, params, max_batch=8, max_len=1024, page_size=64,
+                       mode="overlap", device="cuda", faults=faults)
+
+
+def http_json(port, method, path, body=None):
+    """One HTTP exchange: (status, the JSON body or the SSE events).  A
+    client timeout raises."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request(method, path, body=None if body is None
+                     else json.dumps(body))
+        resp = conn.getresponse()
+        raw = resp.read()
+        if resp.getheader("Content-Type") == "text/event-stream":
+            out = [json.loads(line[6:]) for line in raw.split(b"\n")
+                   if line.startswith(b"data: ")]
+        else:
+            out = json.loads(raw)
+        return resp.status, out
+    finally:
+        conn.close()
+
+
+def gateway_clients(port, bodies, gap_s):
+    """One client thread per body, started ``gap_s`` apart; each returns
+    (status, events, start, end).  A client that raised fails the phase."""
+    import threading
+
+    out = [None] * len(bodies)
+    errors = []
+
+    def client(i):
+        try:
+            t0 = time.perf_counter()
+            status, events = http_json(port, "POST", "/v1/generate",
+                                          bodies[i])
+            out[i] = (status, events, t0, time.perf_counter())
+        except Exception as e:  # raised on the main thread below
+            errors.append((i, repr(e)))
+
+    threads = []
+    for i in range(len(bodies)):
+        threads.append(threading.Thread(target=client, args=(i,)))
+        threads[-1].start()
+        time.sleep(gap_s)
+    for th in threads:
+        th.join(300)
+    assert not any(th.is_alive() for th in threads), "a client hung"
+    assert not errors, errors
+    return out
+
+
+def wait_idle(eng, timeout=120.0):
+    """Wait (host state only) until the runner drained the engine."""
+    deadline = time.monotonic() + timeout
+    while eng.has_work or eng.has_pending:
+        assert time.monotonic() < deadline, "the engine did not drain"
+        time.sleep(0.01)
+
+
+def staggered_in_process(eng, reqs, gap_s):
+    """The live-traffic requests served in-process on this thread,
+    submitted ``gap_s`` apart between polls; returns the reading with
+    the gateway's TTFT / TPOT definitions (submit to first token, token
+    to token, taken when the host routes the token)."""
+    from repro_torch.serving.gateway import LatencyStats
+
+    ttft, tpot = LatencyStats(), LatencyStats()
+    submit, prev = {}, {}
+    n_tok = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending = list(reqs)
+    while pending or eng.has_work or eng.has_pending:
+        now = time.perf_counter()
+        while pending and now - t0 >= gap_s * len(submit):
+            submit[pending[0].rid] = now
+            eng.submit(pending.pop(0))
+        if not (eng.has_work or eng.has_pending):
+            time.sleep(max(0.0, t0 + gap_s * len(submit) - now))
+            continue
+        for out in eng.poll():
+            if out.token is None:
+                continue
+            now = time.perf_counter()
+            n_tok += 1
+            if out.rid in prev:
+                tpot.observe((now - prev[out.rid]) * 1e3)
+            else:
+                ttft.observe((now - submit[out.rid]) * 1e3)
+            prev[out.rid] = now
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
+                ttft_p50_ms=ttft.percentile(50), ttft_p99_ms=ttft.percentile(99),
+                tpot_p50_ms=tpot.percentile(50), tpot_p99_ms=tpot.percentile(99))
+
+
+def gateway_backend(backend, smi):
+    """Phase 9 on one backend: (a) exactness against a second engine's
+    in-process ``stream()``, (b) 8 live clients with exact launch counts,
+    (c) a disconnect storm (``dense``), (d) the endpoints.  Returns the
+    launches of (b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import (FaultPlan, FaultSpec, Request,
+                                     SamplingParams)
+    from repro_torch.serving.gateway import serve_background
+
+    cfg = get_config("camformer-bert", attn_backend=backend)
+    n = cfg.n_layers
+    rng = np.random.default_rng(SEED + 9)
+    exact = [dict(prompt=[int(t) for t in rng.integers(0, cfg.vocab, m)],
+                  max_new=32, **kw)
+             for m, kw in ((160, {}), (224, GATEWAY_KEYED))]
+    live = slice_requests(cfg.vocab, SEED)
+    live_bodies = [dict(prompt=r.prompt, max_new=32) for r in live]
+
+    # (a) the reference: the same requests on a second fresh engine, in
+    # process, before the gateway's runner thread exists; then (b)'s
+    # requests in process on it, arriving as (b)'s clients do
+    ref = gateway_engine(cfg)
+    want = []
+    for rid, body in enumerate(exact):
+        sp = SamplingParams(**{k: v for k, v in body.items()
+                               if k != "prompt"})
+        want.append([o.token for o in ref.stream(Request(
+            prompt=list(body["prompt"]), rid=rid, sampling=sp))])
+    in_proc_reqs = [Request(prompt=list(r.prompt), rid=len(exact) + i,
+                            sampling=SamplingParams(max_new=32))
+                    for i, r in enumerate(live)]
+    in_proc = staggered_in_process(ref, in_proc_reqs, GATEWAY_GAP_S)
+    assert ref.tick_errors == 0, ref.last_error
+    assert all(r.finish_reason == "length" for r in in_proc_reqs)
+    del ref
+    torch.cuda.empty_cache()
+
+    eng = gateway_engine(cfg)
+    handle = serve_background(eng, port=0)
+    try:
+        for rid, body in enumerate(exact):
+            status, events = http_json(handle.port, "POST",
+                                          "/v1/generate", body)
+            assert status == 200, (backend, status, events)
+            got = [e["token"] for e in events]
+            assert [e["rid"] for e in events] == [rid] * len(got)
+            assert [e["index"] for e in events] == list(
+                range(1, len(got) + 1))
+            assert events[-1]["finish_reason"] == "length"
+            assert got == want[rid] == events[-1]["tokens"], (
+                f"{backend} rid {rid}: gateway stream differs from "
+                f"in-process at index {first_divergence(got, want[rid])}")
+        assert handle.runner.is_alive()
+    finally:
+        assert handle.stop(), "the gateway or runner thread did not stop"
+        assert not handle.runner.is_alive(), "the runner thread outlived stop()"
+    wait_idle(eng)
+    log(f"gateway {backend} (a): SSE == in-process stream() for rid 0 "
+        f"(greedy) and rid 1 ({GATEWAY_KEYED}), 32 tokens each")
+
+    # (b) live traffic on a fresh gateway (fresh GatewayMetrics)
+    handle = serve_background(eng, port=0)
+    ticks0, prefill0, reads0 = eng.ticks, eng.prefill_ticks, eng.readbacks
+    try:
+        reset_launches()
+        with plain_calls_on_card() as plain:
+            results = gateway_clients(handle.port, live_bodies,
+                                      GATEWAY_GAP_S)
+            wait_idle(eng)
+        launches = read_launches()
+        assert plain == {}, f"gateway {backend}: plain versions ran {plain}"
+        assert handle.runner.is_alive()
+        ticks = eng.ticks - ticks0
+        prefill_ticks = eng.prefill_ticks - prefill0
+        assert eng.tick_errors == 0, eng.last_error
+        assert eng.readbacks - reads0 == ticks + prefill_ticks
+        assert prefill_ticks > 1, "no continuous admission"
+        eng.kv.check()
+        for i, (status, events, _, _) in enumerate(results):
+            assert status == 200, (backend, i, status)
+            assert events[-1]["finish_reason"] == "length", (backend, i)
+            assert len(events[-1]["tokens"]) == 32, (backend, i)
+            assert [e["token"] for e in events] == events[-1]["tokens"]
+        if backend == "camformer":
+            assert launches["bacam_paged_topk_stage1"] == n * ticks, (
+                launches, ticks)
+        else:
+            assert launches["paged_flash_decode"] == n * ticks, (
+                launches, ticks)
+            assert launches["paged_flash_decode (sq>1)"] == (
+                n * prefill_ticks), (launches, prefill_ticks)
+        # (d) the endpoints
+        st, health = http_json(handle.port, "GET", "/healthz")
+        assert st == 200 and health["device"] == "cuda", health
+        assert health["backend"] == backend, health
+        st, metrics = http_json(handle.port, "GET", "/metrics")
+        assert st == 200
+        for key in ("ticks", "readbacks", "page_pool", "queue_depth",
+                    "active", "tick_errors"):
+            assert key in metrics["engine"], key
+        assert metrics["engine"]["tick_errors"] == 0
+        assert metrics["requests"]["completed"] == len(live)
+    finally:
+        assert handle.stop(), "the gateway or runner thread did not stop"
+        assert not handle.runner.is_alive(), "the runner thread outlived stop()"
+    start = min(r[2] for r in results)
+    wall = max(r[3] for r in results) - start
+    n_tok = sum(len(r[1][-1]["tokens"]) for r in results)
+    equal = sum(a == b for r, q in zip(results, in_proc_reqs)
+                for a, b in zip(r[1][-1]["tokens"], q.tokens))
+    reading = dict(
+        card=smi, clients=len(live), gap_s=GATEWAY_GAP_S, tokens=n_tok,
+        wall_s=wall, tokens_per_s=n_tok / wall, ticks=ticks,
+        prefill_ticks=prefill_ticks,
+        ttft_p50_ms=metrics["ttft_ms"]["p50_ms"],
+        ttft_p99_ms=metrics["ttft_ms"]["p99_ms"],
+        tpot_p50_ms=metrics["tpot_ms"]["p50_ms"],
+        tpot_p99_ms=metrics["tpot_ms"]["p99_ms"],
+        host_blocked_s=eng.blocked_s, in_process=in_proc,
+        tokens_equal_to_in_process=f"{equal}/{n_tok}",
+        launches={k: v for k, v in launches.items() if v})
+    log(f"gateway camformer-bert/{backend} (b): {json.dumps(reading)}")
+    torch.cuda.synchronize()
+    del eng
+    torch.cuda.empty_cache()
+
+    # (c) a disconnect storm: the gateway drops 2 of 6 streams after
+    # their first token (the engine's plan: its ticks arm the window)
+    if backend == "dense":
+        eng = gateway_engine(cfg, FaultPlan([FaultSpec(
+            "gateway.disconnect", prob=1.0, times=2)]))
+        handle = serve_background(eng, port=0)
+        try:
+            results = gateway_clients(handle.port, live_bodies[:6],
+                                      GATEWAY_GAP_S)
+            done = [r for r in results if r[0] == 200 and r[1]
+                    and r[1][-1].get("finished")]
+            assert len(done) == 4, [r[1][-1:] for r in results]
+            assert all(r[1][-1]["finish_reason"] == "length" for r in done)
+            counts = lambda: (handle.runner.metrics.cancelled,
+                              handle.runner.metrics.completed)
+            deadline = time.monotonic() + 60
+            while counts() != (2, 4):
+                assert time.monotonic() < deadline, counts()
+                time.sleep(0.01)
+            wait_idle(eng)
+            eng.kv.check()
+            assert eng.kv.free_pages == eng.kv.n_pages - 1
+            status, events = http_json(handle.port, "POST",
+                                          "/v1/generate", live_bodies[0])
+            assert status == 200 and events[-1]["finish_reason"] == "length"
+            assert eng.tick_errors == 0 and handle.runner.is_alive()
+        finally:
+            assert handle.stop(), "the gateway or runner thread did not stop"
+            assert not handle.runner.is_alive(), "the runner thread outlived stop()"
+        log(f"gateway {backend} (c): 2 streams dropped and cancelled, 4 "
+            f"finished, pool balanced, a fresh request ended length")
+        torch.cuda.synchronize()
+        del eng
+        torch.cuda.empty_cache()
+    return launches
+
+
+def gateway_phase(smi):
+    """Phase 9: ``camformer-bert`` at full width behind the HTTP/SSE
+    gateway on ``camformer`` and ``dense``; returns each run's launches."""
+    return [gateway_backend(backend, smi)
+            for backend in ("camformer", "dense")]
+
+
 def kernel_instance(mangled):
     """``name<N, ...>`` of a mangled ``..._kernel<N, ...>`` (Itanium: a name
     is its length, then its characters; int template arguments
@@ -1970,7 +2270,8 @@ def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    smi_line = smi.stdout.strip().splitlines()[0]
+    log(smi_line)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     if sys.argv[1:] == ["--stage1-bounds"]:
@@ -2020,6 +2321,8 @@ def main():
     runs += list(moe_runs.values()) + [vlm]
     runs += training_phase()
     log(f"elapsed {time.perf_counter() - t0:.1f}s: training")
+    runs += gateway_phase(smi_line)
+    log(f"elapsed {time.perf_counter() - t0:.1f}s: gateway")
     for row in rows:  # launches over every path run
         row["launches"] = sum(run.get(row["name"], 0) for run in runs)
         if row["path"] != "none":

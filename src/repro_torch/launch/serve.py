@@ -5,7 +5,8 @@
         [--layer-backends dense,camformer] [--mode overlap|sync] \
         [--prefill-slice 64] [--shared-prefix 32] [--no-stream] \
         [--temperature 0.8 --top-k 40 --top-p 0.95] \
-        [--spec-k 3 --spec-backend binary] [--device cuda|cpu]
+        [--spec-k 3 --spec-backend binary] [--max-queue 8] \
+        [--deadline-ms 500] [--faults step.error@3] [--device cuda|cpu]
 
 Serves the dense, MoE and VLM families (the VLM text-only, as the
 reference does); the other families raise NotImplementedError naming
@@ -14,6 +15,9 @@ plain PyTorch path.  Weights are random, drawn from ``--seed`` (no weights ship 
 the repository).  ``--temperature 0`` (the default) decodes greedily;
 one sampling policy applies to every CLI request.  ``--spec-k N`` turns
 on self-speculative decoding with an ``--spec-backend`` drafter.
+``--max-queue``, ``--deadline-ms`` and ``--faults`` are the reference's
+admission bound, per-request deadline and chaos fault plan.  The flags
+are the reference launcher's minus ``--tp``.
 """
 
 from __future__ import annotations
@@ -23,74 +27,38 @@ import time
 
 import numpy as np
 
-from repro_torch.configs import get_config, smoke_config
-from repro_torch.launch.cli import add_backend_args, apply_backend_args
-from repro_torch.models import init_params
-from repro_torch.serving import Request, SamplingParams, ServeEngine
+from repro_torch.launch.cli import add_engine_args, build_engine
+from repro_torch.serving import Request, SamplingParams
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
-    ap.add_argument("--smoke", action="store_true")
-    add_backend_args(ap)
-    ap.add_argument("--device", default="cuda")
-    ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the random weights")
+    add_engine_args(ap, max_batch=4, max_len=128)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
-    ap.add_argument("--max-batch", type=int, default=4)
-    ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="common system-prompt length prepended to every "
                          "request (exercises COW prefix sharing)")
-    ap.add_argument("--page-size", type=int, default=64)
-    ap.add_argument("--n-pages", type=int, default=None,
-                    help="page-pool size; default = full residency")
-    ap.add_argument("--prefill-chunk", type=int, default=None,
-                    help="chunked-prefill chunk length (0 = whole prompt)")
-    ap.add_argument("--mode", default="overlap", choices=("overlap", "sync"))
-    ap.add_argument("--prefill-slice", type=int, default=None,
-                    help="prefill joining prompts in chunks of this many "
-                         "tokens across ticks")
-    ap.add_argument("--paged-impl", default=None, choices=("fused", "gather"),
-                    help="paged decode realization: fused CUDA kernels "
-                         "(default) or the plain page-gather reference")
-    ap.add_argument("--prefill-impl", default=None,
-                    choices=("auto", "fused", "gather"))
-    ap.add_argument("--spec-k", type=int, default=None,
-                    help="self-speculative decoding: draft this many "
-                         "tokens per tick with the --spec-backend stack "
-                         "and verify them in one target pass (0 = off)")
-    ap.add_argument("--spec-backend", default=None,
-                    help="drafter attention backend (default binary)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request deadline: requests not finished "
+                         "within this many ms of submit end with "
+                         "finish_reason='timeout'")
     ap.add_argument("--no-stream", action="store_true",
                     help="suppress per-token output, print only summaries")
     args = ap.parse_args(argv)
 
-    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    cfg = apply_backend_args(cfg, args)
-    if args.prefill_chunk is not None:
-        cfg = cfg.replace(prefill_chunk=args.prefill_chunk)
-    params = init_params(cfg, device=args.device, seed=args.seed)
-    eng = ServeEngine(cfg, params, max_batch=args.max_batch,
-                      max_len=args.max_len, page_size=args.page_size,
-                      n_pages=args.n_pages, mode=args.mode,
-                      prefill_slice=args.prefill_slice,
-                      paged_impl=args.paged_impl,
-                      prefill_impl=args.prefill_impl, spec_k=args.spec_k,
-                      spec_backend=args.spec_backend, device=args.device)
-    del params
+    eng = build_engine(args)
+    cfg = eng.cfg
     layout = cfg.uniform_backend or ",".join(cfg.layer_backends)
     print(f"paged KV cache [{layout}] on {eng.device}: {eng.kv.n_pages} "
           f"pages x {eng.kv.page_size} tokens "
           f"(page table {eng.kv.table.shape})")
     sampling = SamplingParams(max_new=args.max_new,
                               temperature=args.temperature, top_k=args.top_k,
-                              top_p=args.top_p)
+                              top_p=args.top_p, deadline_ms=args.deadline_ms)
     rng = np.random.default_rng(7)
     shared = list(range(1, args.shared_prefix + 1))
     for i in range(args.requests):
@@ -111,9 +79,11 @@ def main(argv=None):
         print(f"speculation: k={eng.spec_k}, "
               f"{eng.spec_accepted}/{eng.spec_proposed} drafts accepted "
               f"({eng.spec_acceptance:.0%})")
-    if eng.tick_errors:
-        print(f"{eng.tick_errors} tick errors contained "
-              f"(last: {eng.last_error})")
+    if eng.tick_errors or eng.sched.timeouts or eng.sched.rejections:
+        print(f"chaos: {eng.tick_errors} tick errors contained "
+              f"(last: {eng.last_error}), "
+              f"{eng.sched.timeouts} timeouts, "
+              f"{eng.sched.rejections} rejections")
     print(f"peak pool residency: {eng.peak_pages}/{eng.kv.n_pages - 1} pages"
           f" ({eng.kv.shared_pages} still shared, "
           f"{eng.kv.retained_pages} prefix pages retained at drain)")

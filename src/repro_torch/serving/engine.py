@@ -122,6 +122,7 @@ class ServeEngine:
         if tp != 1:
             raise NotImplementedError("tensor parallelism (tp > 1) is not "
                                       "ported")
+        self.tp = tp
         if paged_impl is not None:
             cfg = cfg.replace(paged_impl=paged_impl)
         if prefill_impl is not None:
@@ -201,6 +202,19 @@ class ServeEngine:
     def cancel(self, rid: int) -> Optional[RequestOutput]:
         return self.sched.cancel(rid)
 
+    def schedule(self) -> List[Admission]:
+        """Admission policy alone (no model computation) — see
+        ``Scheduler.admit``."""
+        return self.sched.admit()
+
+    @property
+    def queue(self) -> List[Request]:
+        return self.sched.queue
+
+    @property
+    def active(self) -> List[Optional[Request]]:
+        return self.sched.active
+
     @property
     def done(self) -> List[Request]:
         return self.sched.done
@@ -218,7 +232,13 @@ class ServeEngine:
         return self._pending is not None
 
     @property
+    def prefill_tokens(self) -> int:
+        """Prompt tokens materialized through chunked-prefill steps."""
+        return self.sched.prefill_tokens
+
+    @property
     def prefill_ticks(self) -> int:
+        """Engine ticks that carried a prefill chunk."""
         return self.sched.prefill_ticks
 
     @property
@@ -471,6 +491,21 @@ class ServeEngine:
         plan = self.sched.plan_tick()
         events = self.sched.take_events()
         events.extend(self._run_plan(plan))
+        return events
+
+    def prefill(self, admitted: Optional[List[Admission]] = None
+                ) -> List[RequestOutput]:
+        """Drive the PREFILLING slots to completion (no admissions, no
+        decode ticks) and return their first-token outputs.  ``admitted``
+        is accepted for API compatibility with ``prefill(schedule())``;
+        the scheduler already tracks the slots."""
+        del admitted
+        events: List[RequestOutput] = []
+        while self.sched.has_prefilling:
+            self.faults.advance()
+            plan = self.sched.plan_tick(admit=False, decode=False)
+            events.extend(self.sched.take_events())
+            events.extend(self._run_plan(plan))
         return events
 
     def _fault_delay(self) -> None:

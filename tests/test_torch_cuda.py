@@ -717,3 +717,69 @@ def test_train_step_on_card_equals_cpu(cuda, monkeypatch, arch, kw):
         state, metrics = step(state, on_card)
         losses.append(float(metrics["loss"]))
     assert all(np.isfinite(losses)) and losses[0] != losses[1]
+
+
+# --- the gateway -------------------------------------------------------------
+
+@pytest.mark.parametrize("backend", ["dense", "camformer"])
+def test_gateway_sse_equals_in_process_stream_on_card(cuda, backend):
+    """A smoke engine on the card behind ``serve_background``: the SSE
+    stream of a greedy request and a keyed one equals the same engine
+    configuration's in-process ``stream()`` on the card, the runner
+    thread survives, and the decode kernels ran once a layer a tick on
+    the runner thread."""
+    import http.client
+    import json
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import Request, SamplingParams, ServeEngine
+    from repro_torch.serving.gateway import serve_background
+
+    cfg = smoke_config("camformer-bert", attn_backend=backend)
+    params = init_params(cfg, device=cuda, seed=0)
+    specs = [dict(prompt=[5, 9, 2, 4, 7, 1], max_new=8),
+             dict(prompt=[3, 3, 8], max_new=8, temperature=0.9, top_k=40)]
+
+    def engine():
+        return ServeEngine(cfg, params, max_batch=3, max_len=64, page_size=8,
+                           mode="overlap", device=cuda)
+
+    ref = engine()
+    want = []
+    for rid, spec in enumerate(specs):
+        sp = {k: v for k, v in spec.items() if k != "prompt"}
+        want.append([o.token for o in ref.stream(Request(
+            prompt=list(spec["prompt"]), rid=rid,
+            sampling=SamplingParams(**sp)))])
+    eng = engine()
+    before = (bdec.launches, pfd.launches, pfd.prefill_launches)
+    handle = serve_background(eng)
+    try:
+        for rid, spec in enumerate(specs):
+            conn = http.client.HTTPConnection("127.0.0.1", handle.port,
+                                              timeout=120)
+            conn.request("POST", "/v1/generate", body=json.dumps(spec))
+            resp = conn.getresponse()
+            assert resp.status == 200
+            events = [json.loads(line[6:]) for line in resp.read().split(
+                b"\n") if line.startswith(b"data: ")]
+            conn.close()
+            assert [e["rid"] for e in events] == [rid] * len(want[rid])
+            assert [e["token"] for e in events] == want[rid]
+            assert events[-1]["finish_reason"] == "length"
+        assert handle.runner.is_alive()
+    finally:
+        assert handle.stop()
+    torch.cuda.synchronize()
+    assert eng.tick_errors == 0, eng.last_error
+    assert eng.readbacks == eng.ticks + eng.prefill_ticks
+    cam, flash, chunks = (now - then for now, then in zip(
+        (bdec.launches, pfd.launches, pfd.prefill_launches), before))
+    n = cfg.n_layers
+    if backend == "camformer":  # CAM decode rows; chunks stay plain
+        assert (cam, flash) == (eng.ticks * n, 0)
+    else:
+        assert (cam, flash - chunks) == (0, eng.ticks * n)
+        assert chunks == eng.prefill_ticks * n
+    eng.kv.check()

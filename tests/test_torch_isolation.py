@@ -3,6 +3,7 @@
 when the port is imported, and the entry points run on the card unless
 the caller asks for the CPU."""
 
+import argparse
 import ast
 import importlib
 import pkgutil
@@ -49,7 +50,7 @@ def test_importing_the_port_builds_nothing(monkeypatch):
 
 def test_entry_points_need_the_card_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    from repro_torch.launch import serve
+    from repro_torch.launch import gateway, serve
     from repro_torch.models import from_jax_params, init_params
     from repro_torch.serving import ServeEngine
 
@@ -71,10 +72,17 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
         from_jax_params(params_np, cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "camformer-bert", "--smoke", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gateway.main(["--arch", "camformer-bert", "--smoke", "--port", "0"])
     # asked for the CPU, each runs the plain path
     eng = serve.main(["--arch", "camformer-bert", "--smoke", "--requests",
                       "2", "--max-new", "3", "--device", "cpu",
                       "--no-stream"])
     assert [r.finish_reason for r in eng.done] == ["length"] * 2
+    ap = argparse.ArgumentParser()
+    gateway.add_engine_args(ap, max_batch=2, max_len=64)
+    eng = gateway.build_engine(ap.parse_args(
+        ["--arch", "camformer-bert", "--smoke", "--device", "cpu"]))
+    assert eng.device.type == "cpu"
     assert from_jax_params(params_np, cfg, device="cpu")["blocks"][1][
         "attn"]["wq"].equal(params["blocks"][1]["attn"]["wq"])
