@@ -78,11 +78,27 @@ Phases, in order (each raises on failure; nothing is caught):
      served in process on this thread; (c) on ``dense``, a
      ``gateway.disconnect`` storm dropping 2 of 6 streams, cancelled
      and freed, and a fresh request after it.  The main thread does
-     HTTP only while a runner thread drives the card.
+     HTTP only while a runner thread drives the card;
+ 10. the encoder-decoder and Griffin families: at f32 smoke width,
+     ``whisper-medium`` and ``recurrentgemma-2b`` (8 layers, window 16:
+     the ring wraps) on ``dense`` and ``camformer`` + ``use_kernel``,
+     card against CPU (prefill + 8 steps, logits within 1e-4, picks
+     equal; a train step's loss 1e-5, gradients 1e-4); then at full
+     width and depth in bf16 through the contiguous steps on
+     ``camformer`` + ``use_kernel`` and ``dense``: ``whisper-medium``
+     with 4 x 1500 stub frames, 32-token prompts, a 448-token cache and
+     64 greedy steps (kernel 4 exactly 24 x (3 + 64) times, 24 of them
+     the encoder's, kernel 3 24 x 64), ``recurrentgemma-2b`` with 4 x
+     2016 tokens, ``cache_len`` 2080 (a 2048-slot ring) and 64 steps that
+     wrap it (kernel 4 exactly 8 times, kernel 3 never: the ring's
+     decode takes the plain CAM search); no plain version on the card,
+     finite logits; prefill s (whisper's encoder apart), decode
+     tokens/s, peak GB and a profiled window are printed.
 
 Phase 3 also holds kernels 1, 2 (dense and binary) and 2b at granite's
 GQA width (8 kv heads, G = 3), and kernel 4 at the train step's shape
-(128, 1024, 1024), bit-exact; phase 4 also runs granite smoke at G = 3
+(128, 1024, 1024) and at phase 10's two shapes (recurrentgemma's
+prefill, W = 8, and whisper's 1500-key encoder), bit-exact; phase 4 also runs granite smoke at G = 3
 card against CPU, and one full-width granite ``apply_moe`` layer card
 against CPU (routing identical, outputs within 1e-5).
 
@@ -90,7 +106,8 @@ The line before the last is the ``kernels`` JSON object (one row per
 kernel and shape: the paged flash and contiguous stage-1 kernels have a
 second ``(sq>1)`` row for their prefill chunks, the paged flash kernel
 also a ``(binary)`` and a verify row, the BA-CAM matrix kernel a
-``(train)`` row at the train step's shape; ``path`` names the runs that
+``(train)`` row at the train step's shape and a row at each of phase
+10's two shapes; ``path`` names the runs that
 launch it); the last line
 is ``{"ok": true, "device":
 {...}}``.  Without a CUDA card, or without the rest of the repository
@@ -242,22 +259,29 @@ def reset_launches():
 
     from repro_torch.kernels import bacam_topk
 
+    from repro_torch.kernels import bacam_mvm
+
     for mod in kernel_modules():
         mod.launches = 0
+    bacam_mvm.shape_launches.clear()
     paged_flash_decode.prefill_launches = 0
     paged_flash_decode.binary_launches = 0
     paged_flash_decode.sq_launches.clear()
     bacam_topk.prefill_launches = 0
 
 
-def read_launches():
-    """Launches since the last reset, by the kernels line's row names."""
+def read_launches(families=False):
+    """Launches since the last reset, by the kernels line's row names;
+    with ``families``, kernel 4's launches at phase 10's shapes apart, in
+    rows of their own."""
     from repro_torch.kernels import (bacam_decode, bacam_mvm, bacam_topk,
                                      bitslice_vmm, flash_attention,
                                      paged_flash_decode)
 
     pfd = paged_flash_decode
     verify = pfd.sq_launches[VERIFY_M]
+    at_shape = {name: bacam_mvm.shape_launches[shape] if families else 0
+                for name, shape in FAMILY_MVM_SHAPES.items()}
     return {"bacam_paged_topk_stage1": bacam_decode.launches,
             "paged_flash_decode": pfd.launches - pfd.prefill_launches
             - pfd.binary_launches,
@@ -267,7 +291,8 @@ def read_launches():
             "bacam_topk_stage1": bacam_topk.launches
             - bacam_topk.prefill_launches,
             "bacam_topk_stage1 (sq>1)": bacam_topk.prefill_launches,
-            "bacam_mvm": bacam_mvm.launches,
+            "bacam_mvm": bacam_mvm.launches - sum(at_shape.values()),
+            **at_shape,
             "bitslice_vmm": bitslice_vmm.launches,
             # one wrapper and one count for the two flash kernels
             "flash_attention": flash_attention.launches,
@@ -683,7 +708,8 @@ def contiguous_kernel_phase(flush):
         f"ms")
     outputs = bh * s * s
     rows.append(dict(
-        name="bacam_mvm", route="cuda", path="contiguous",
+        name="bacam_mvm", route="cuda",
+        path="contiguous: camformer-bert and llava prefill",
         source="src/repro_torch/csrc/bacam_mvm.cu",
         replaces="src/repro/kernels/bacam_mvm.py:62", max_abs_err=0.0,
         ms=cuda_ms(lambda: bmvm.bacam_mvm(q, k, d=d), flush=flush),
@@ -2202,6 +2228,384 @@ def gateway_phase(smi):
             for backend in ("camformer", "dense")]
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the encoder-decoder and Griffin hybrid families
+
+# whisper-medium: 4 rows of 1500 stub frames, 32-token prompts, a
+# 448-token decoder cache (Whisper's text context), 64 greedy steps;
+# recurrentgemma-2b: 4 rows of 2016-token prompts, cache_len 2080 (a
+# 2048-slot ring), 64 greedy steps (positions 2048-2079 overwrite slots
+# 0-31)
+WHISPER_B, WHISPER_PROMPT, WHISPER_CACHE, WHISPER_DECODE = 4, 32, 448, 64
+RG_B, RG_PROMPT, RG_CACHE, RG_DECODE = 4, 2016, 2080, 64
+RG_ROW = "bacam_mvm (recurrentgemma prefill)"
+WHISPER_ENC_ROW = "bacam_mvm (whisper encoder)"
+WHISPER_DEC_ROW = "bacam_mvm (whisper decoder prefill)"
+WHISPER_XPRE_ROW = "bacam_mvm (whisper cross-attention prefill)"
+WHISPER_XDEC_ROW = "bacam_mvm (whisper cross-attention decode)"
+# (B * H_kv, R, Skv, W) of kernel 4 there: recurrentgemma's prefill (MQA,
+# G = 10 rows of each position, head_dim 256); whisper's non-causal
+# encoder, its decoder's causal prefill, and its cross-attention to the
+# 1500 frames at prefill and at every decode step (16 heads, head_dim 64)
+FAMILY_MVM_SHAPES = {
+    RG_ROW: (RG_B, 10 * RG_PROMPT, RG_PROMPT, 8),
+    WHISPER_ENC_ROW: (WHISPER_B * 16, 1500, 1500, 2),
+    WHISPER_DEC_ROW: (WHISPER_B * 16, WHISPER_PROMPT, WHISPER_PROMPT, 2),
+    WHISPER_XPRE_ROW: (WHISPER_B * 16, WHISPER_PROMPT, 1500, 2),
+    WHISPER_XDEC_ROW: (WHISPER_B * 16, 1, 1500, 2)}
+FAMILY_MVM_PATHS = {
+    RG_ROW: "phase 10: recurrentgemma-2b camformer use_kernel prefill (one "
+            "launch an attention layer)",
+    WHISPER_ENC_ROW: "phase 10: whisper-medium camformer use_kernel encoder "
+                     "(one launch a layer)",
+    WHISPER_DEC_ROW: "phase 10: whisper-medium camformer use_kernel decoder "
+                     "prefill (one launch a layer)",
+    WHISPER_XPRE_ROW: "phase 10: whisper-medium camformer use_kernel "
+                      "cross-attention at prefill (one launch a layer)",
+    WHISPER_XDEC_ROW: "phase 10: whisper-medium camformer use_kernel "
+                      "cross-attention at each decode step (one launch a "
+                      "layer a step)"}
+RG_CHECK_ROWS = 2016  # rows of shape (a) checked per plain-version call
+
+
+def families_kernel_phase(flush):
+    """Kernel 4 at every shape phase 10 launches it at, bit-exact against
+    its plain version and timed beside it, its bound and ``torch.bmm`` of
+    the ±1 bf16 operands with float32 output (4-byte scores, as the
+    function writes): recurrentgemma-2b's prefill (4, 20160, 2016), W =
+    8, never run on the card before; whisper-medium's encoder (64, 1500,
+    1500), whose 1500 keys are no multiple of a group or a key tile, its
+    decoder prefill (64, 32, 32), and its cross-attention (64, 32, 1500)
+    at prefill and (64, 1, 1500) at each decode step, W = 2.  The plain
+    version's int64 temporaries at (4, 20160, 2016) would take about 10 GB
+    each, so there it runs over slices of RG_CHECK_ROWS rows: the check
+    covers every row, and plain_ms is the time of those slices in turn.
+    Then kernel 3 at whisper's decode step, checked and timed (logged)."""
+    from repro_torch.core.bacam import unpack_bits
+    from repro_torch.kernels import bacam_mvm as bmvm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    rows = []
+    for name, (bh, r, skv, w) in FAMILY_MVM_SHAPES.items():
+        d = 32 * w
+        q, k = (torch.randint(-2**31, 2**31 - 1, (bh, n, w), generator=gen,
+                              device=dev, dtype=torch.int32)
+                for n in (r, skv))
+        got = bmvm.bacam_mvm(q, k, d=d)
+        step = RG_CHECK_ROWS if name == RG_ROW else r
+
+        def plain(out=None):
+            out = torch.empty_like(got) if out is None else out
+            for r0 in range(0, r, step):
+                out[:, r0:r0 + step] = bmvm.bacam_scores_ref(
+                    q[:, r0:r0 + step], k, d)
+            return out
+
+        want = plain()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), \
+            f"{name}: kernel 4 differs from its plain version"
+        del want
+        if name == WHISPER_ENC_ROW:
+            hold_last_group(got[:, :32])
+        qf, kf = (unpack_bits(x, d).to(torch.bfloat16) for x in (q, k))
+        library = lambda: torch.bmm(qf, kf.transpose(1, 2),
+                                    out_dtype=torch.float32)
+        assert torch.equal(library().to(torch.int32), got), \
+            f"{name}: f32-output bmm yardstick is not exact"
+        outputs = bh * r * skv
+        scratch = torch.empty_like(got)
+        rows.append(dict(
+            name=name, route="cuda", path=FAMILY_MVM_PATHS[name],
+            source="src/repro_torch/csrc/bacam_mvm.cu",
+            replaces="src/repro/kernels/bacam_mvm.py:62", max_abs_err=0.0,
+            ms=cuda_ms(lambda: bmvm.bacam_mvm(q, k, d=d), flush=flush),
+            plain_ms=cuda_ms(lambda: plain(scratch), flush=flush, n=5,
+                             warmup=1),
+            # packed operands read once, int32 scores written once; xor,
+            # popc and add per word of each score
+            **bound((bh * r + bh * skv) * w * 4 + outputs * 4,
+                    3 * w * outputs / INT32_OP_PER_S),
+            library_ms=cuda_ms(library, flush=flush)))
+        log(f"{name} ({bh}, {r}, {skv}) W={w}: bit-exact"
+            f"{f' (checked {step} rows a call)' if step < r else ''}; "
+            f"kernel {rows[-1]['ms']:.6g} ms, plain "
+            f"{rows[-1]['plain_ms']:.6g} ms, f32-output bmm "
+            f"{rows[-1]['library_ms']:.6g} ms, bound "
+            f"{rows[-1]['bound_ms']:.6g} ms")
+        del got, qf, kf, q, k, scratch
+        torch.cuda.empty_cache()
+    whisper_decode_topk(gen, flush)
+    return rows
+
+
+def whisper_decode_topk(gen, flush):
+    """Kernel 3 at whisper-medium's decode step, bit-exact against its
+    plain version: 64 (b, head) rows of R = 1 against a 448-slot cache (no
+    multiple of the 128-key tile), kv_len ragged over the rows (the last
+    slot, one short of it, and two inside), q_pos = kv_len - 1; timed
+    beside its plain version and its bound (logged: the row
+    ``bacam_topk_stage1`` is timed at camformer-bert's decode step)."""
+    from repro_torch.kernels import bacam_topk as btk
+
+    dev = torch.device("cuda")
+    bh, w, cache = WHISPER_B * 16, 2, WHISPER_CACHE
+    kv_len = torch.tensor([cache, cache - 1, WHISPER_PROMPT + 1, 321],
+                          dtype=torch.int32, device=dev).repeat_interleave(16)
+    q, k = (torch.randint(-2**31, 2**31 - 1, (bh, n, w), generator=gen,
+                          device=dev, dtype=torch.int32) for n in (1, cache))
+    q_pos = (kv_len - 1)[:, None].contiguous()
+    kw = dict(d=32 * w, causal=True, group=16, stage1_k=2)
+    got = btk.bacam_topk_stage1(q, k, q_pos, kv_len, **kw)
+    want = btk.bacam_topk_stage1_plain(q, k, q_pos, kv_len, **kw)
+    n_valid, n_dead = check_candidates("bacam_topk_stage1 whisper decode",
+                                       got, want, 16, 2)
+    ms = cuda_ms(lambda: btk.bacam_topk_stage1(q, k, q_pos, kv_len, **kw),
+                 flush=flush)
+    plain_ms = cuda_ms(lambda: btk.bacam_topk_stage1_plain(
+        q, k, q_pos, kv_len, **kw), flush=flush)
+    live = int(kv_len.sum())
+    b = bound(q.numel() * 4 + live * w * 4 + 2 * bh * 4
+              + 2 * got[0].numel() * 4, 3 * w * live / INT32_OP_PER_S)
+    log(f"bacam_topk_stage1 whisper decode ({bh} x 1 rows, {cache} keys, "
+        f"kv_len {kv_len[::16].tolist()}): bit-exact ({n_valid} valid "
+        f"candidates, {n_dead} fully masked groups); kernel {ms:.6g} ms, "
+        f"plain {plain_ms:.6g} ms, bound {b['bound_ms']:.6g} ms by "
+        f"{b['bound_by']}")
+
+
+def hold_last_group(scores, group=16, stage1_k=2, k_top=32):
+    """The two-stage top-k over 1500 keys (93 full groups of 16 and a
+    last group of 12, padded with NEG_INF) on the card equals the CPU's,
+    values and indices, on kernel 4's scores of 32 query rows whose last
+    group is raised above every other score (so it must be selected)."""
+    from repro_torch.core.topk import two_stage_topk
+
+    s = scores.float()
+    n = s.shape[-1]
+    s[..., n - n % group:] += 200.0
+    card = two_stage_topk(s, k=k_top, group_size=group, stage1_k=stage1_k)
+    cpu = two_stage_topk(s.cpu(), k=k_top, group_size=group,
+                         stage1_k=stage1_k)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)), \
+        "two-stage top-k over 1500 keys: card differs from the CPU"
+    assert bool((card[1][..., :stage1_k] >= n - n % group).all()), \
+        "the last, partial group's candidates were not selected"
+    log(f"two-stage top-k over {n} keys ({n // group} groups of {group} "
+        f"and one of {n % group}): card equals CPU, the last group's "
+        f"{stage1_k} candidates first in every row")
+
+
+def family_batch(cfg, b, prompt, dev, seed=SEED):
+    """Seeded prompts (and, for whisper, stub frame embeddings of unit
+    scale) on ``dev``."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                     (b, prompt)))}
+    if cfg.enc_len:
+        batch["audio_features"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.enc_len, cfg.d_model)).astype(np.float32))
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def families_parity_phase():
+    """At f32 smoke width, card against CPU: whisper-medium (2 encoder +
+    2 decoder layers) and recurrentgemma-2b (8 layers: two periods and
+    both trailing rec layers, window 16 so the ring wraps), on ``dense``
+    and on ``camformer`` with ``use_kernel``: prefill of 24 tokens + 8
+    decode steps, both fed the CPU's greedy picks, logits within 1e-4
+    and the card's picks equal; then one train step's loss (1e-5) and
+    gradients (1e-4) on ``camformer`` with ``use_kernel``."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                          make_value_and_grad)
+    from repro_torch.models import cast_params, get_model_def, init_params
+    from repro_torch.models import init_pools
+    from repro_torch.models.module import tree_leaves
+
+    out = {}
+    for arch, kw in (("whisper-medium", {}),
+                     ("recurrentgemma-2b", dict(n_layers=8, window=16))):
+        for backend, use_kernel in (("dense", False), ("camformer", True)):
+            cfg = smoke_config(arch, attn_backend=backend,
+                               use_kernel=use_kernel, **kw)
+            md = get_model_def(cfg)
+            prefill, serve = (make_prefill_step(md, cfg),
+                              make_serve_step(md, cfg))
+            params = init_params(cfg, device="cpu", seed=SEED)
+            b, s, steps = 3, 24, 8
+            batch = family_batch(cfg, b, s, "cpu")
+            logits, fed = {}, []
+            for devname in ("cpu", "cuda"):
+                dev = torch.device(devname)
+                p = cast_params(params, torch.float32, dev)
+                caches = init_pools(md.cache_specs(cfg, b, s + steps), dev)
+                lg, caches = prefill(
+                    p, {k: v.to(dev) for k, v in batch.items()}, caches)
+                rows = [lg]
+                pos = torch.full((b,), s, dtype=torch.int32, device=dev)
+                for step in range(steps):
+                    if devname == "cpu":
+                        fed.append(torch.argmax(rows[-1], -1))
+                    lg, caches = serve(p, fed[step].to(dev), pos, pos + 1,
+                                       caches)
+                    rows.append(lg)
+                    pos = pos + 1
+                logits[devname] = torch.stack(rows).cpu()
+            err, ok = close(logits["cuda"], logits["cpu"], 1e-4)
+            assert ok, f"family parity {arch} {backend}: max abs err {err}"
+            assert torch.equal(logits["cuda"].argmax(-1),
+                               logits["cpu"].argmax(-1)), (arch, backend)
+            out[f"{arch} {backend}"] = err
+        cfg = smoke_config(arch, attn_backend="camformer", use_kernel=True,
+                           **kw)
+        params = init_params(cfg, device="cpu", seed=SEED)
+        batch = family_batch(cfg, 2, 32, "cpu", seed=SEED + 1)
+        batch["labels"] = torch.roll(batch["tokens"], -1, 1)
+
+        def grads(dev):
+            loss, _, g = make_value_and_grad(get_model_def(cfg), cfg)(
+                cast_params(params, torch.float32, dev),
+                {k: v.to(dev) for k, v in batch.items()})
+            return loss.cpu(), [t.cpu() for t in tree_leaves(g)]
+
+        (l_card, g_card), (l_cpu, g_cpu) = grads("cuda"), grads("cpu")
+        e_loss, ok_loss = close(l_card, l_cpu, 1e-5)
+        e_grad = max(close(a, c, 1e-4)[0] for a, c in zip(g_card, g_cpu))
+        ok_grad = all(close(a, c, 1e-4)[1] for a, c in zip(g_card, g_cpu))
+        assert torch.isfinite(l_card) and ok_loss and ok_grad, \
+            f"family train parity {arch}: loss {e_loss} grad {e_grad}"
+        out[f"{arch} train"] = dict(loss=e_loss, grad=e_grad)
+    log(f"family parity smoke, card vs CPU max abs err: {json.dumps(out)} "
+        f"(tol 1e-4 logits, greedy picks identical; train 1e-5 loss, "
+        f"1e-4 gradients)")
+    return out
+
+
+def family_run(arch, backend, *, b, prompt, cache_len, steps):
+    """One family at full width and depth in bf16 (seeded random
+    weights) through ``make_prefill_step`` / ``make_serve_step``:
+    prefill, then ``steps`` greedy decode steps, launches counted and
+    plain versions on the card refused; 8 more steps profiled after.
+    Returns the readings, the launches at prefill and in all."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import (cast_params, count_params,
+                                    get_model_def, init_params, init_pools)
+
+    cfg = get_config(arch, attn_backend=backend,
+                     use_kernel=backend == "camformer")
+    md = get_model_def(cfg)
+    params = cast_params(init_params(cfg, device="cuda", seed=SEED),
+                         torch.bfloat16)
+    n_params = count_params(params)
+    batch = family_batch(cfg, b, prompt, "cuda")
+    prefill, serve = make_prefill_step(md, cfg), make_serve_step(md, cfg)
+    readings = dict(arch=arch, backend=backend, batch=b, prompt=prompt,
+                    cache_len=cache_len, decode_steps=steps, params=n_params)
+    if cfg.enc_len:  # the encoder alone, timed apart (not counted)
+        from repro_torch.models.encdec import encode
+
+        encode(params, batch["audio_features"], cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode(params, batch["audio_features"], cfg)
+        torch.cuda.synchronize()
+        readings["encoder_s"] = time.perf_counter() - t0
+    caches = init_pools(md.cache_specs(cfg, b, cache_len), "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_calls_on_card() as plain:
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, batch, caches)
+        torch.cuda.synchronize()
+        readings["prefill_s"] = time.perf_counter() - t0
+        at_prefill = read_launches(families=True)
+        pos = torch.full((b,), prompt, dtype=torch.int32, device="cuda")
+        picks = []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok = torch.argmax(logits, -1)
+            picks.append(tok)
+            logits, caches = serve(params, tok, pos, pos + 1, caches)
+            pos = pos + 1
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        launches = read_launches(families=True)
+        assert torch.isfinite(logits).all(), f"{arch} {backend}: non-finite"
+        picks = torch.stack(picks)
+        assert bool(((picks >= 0) & (picks < cfg.vocab)).all())
+        if "attn_pos" in caches:  # the ring wrapped: slot p mod wlen
+            wlen = caches["attn_pos"].shape[1]
+            last = prompt + steps - 1
+            assert int(caches["attn_pos"][0, last % wlen]) == last
+            assert int(caches["attn_pos"].max()) == last
+        state = dict(logits=logits, caches=caches, pos=pos - 8)
+
+        def run():  # 8 more steps, rewriting the last 8 positions
+            for _ in range(8):
+                state["logits"], state["caches"] = serve(
+                    params, torch.argmax(state["logits"], -1), state["pos"],
+                    state["pos"] + 1, state["caches"])
+                state["pos"] = state["pos"] + 1
+
+        readings.update(
+            decode_s=decode_s, decode_tokens_per_s=b * steps / decode_s,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            plain_calls_on_card=sum(plain.values()))
+        readings["profile_decode_8_steps"] = profiled(run)
+    assert plain == {}, f"{arch} {backend}: plain versions on the card " \
+        f"{plain}"
+    if "encoder_s" in readings:
+        readings["decoder_prefill_s"] = (readings["prefill_s"]
+                                         - readings["encoder_s"])
+    readings["launches"] = {k: v for k, v in launches.items() if v}
+    log(f"family {arch}/{backend} full width bf16: {json.dumps(readings)}")
+    del params, caches, state, logits
+    torch.cuda.empty_cache()
+    return at_prefill, launches
+
+
+def families_phase():
+    """Phase 10: card-vs-CPU parity at smoke width, then whisper-medium
+    and recurrentgemma-2b at full width and depth in bf16 on
+    ``camformer`` (use_kernel: exact launch counts) and ``dense`` (no
+    kernel).  Returns the runs' launches."""
+    families_parity_phase()
+    runs = []
+    n_dec, n_enc = 24, 24  # whisper-medium's decoder and encoder layers
+    for backend in ("camformer", "dense"):
+        at_prefill, launches = family_run(
+            "whisper-medium", backend, b=WHISPER_B, prompt=WHISPER_PROMPT,
+            cache_len=WHISPER_CACHE, steps=WHISPER_DECODE)
+        # per layer: kernel 4 at the encoder, the decoder prefill and the
+        # cross-attention at prefill and at every step; kernel 3 at every
+        # decoder self-attention step
+        want = {WHISPER_ENC_ROW: n_enc, WHISPER_DEC_ROW: n_dec,
+                WHISPER_XPRE_ROW: n_dec,
+                WHISPER_XDEC_ROW: n_dec * WHISPER_DECODE,
+                "bacam_topk_stage1": n_dec * WHISPER_DECODE}
+        if backend == "dense":
+            want = {}
+        assert {k: v for k, v in launches.items() if v} == want, launches
+        assert at_prefill[WHISPER_XDEC_ROW] == 0, at_prefill
+        assert at_prefill["bacam_topk_stage1"] == 0, at_prefill
+        runs.append(launches)
+    n_attn = 8  # recurrentgemma-2b: 8 periods of (rec, rec, attn) + 2
+    for backend in ("camformer", "dense"):
+        _, launches = family_run(
+            "recurrentgemma-2b", backend, b=RG_B, prompt=RG_PROMPT,
+            cache_len=RG_CACHE, steps=RG_DECODE)
+        want = n_attn if backend == "camformer" else 0
+        assert launches[RG_ROW] == want, launches
+        assert all(v == 0 for k, v in launches.items() if k != RG_ROW), \
+            launches  # the ring decode takes the plain CAM search
+        runs.append(launches)
+    return runs
+
+
 def kernel_instance(mangled):
     """``name<N, ...>`` of a mangled ``..._kernel<N, ...>`` (Itanium: a name
     is its length, then its characters; int template arguments
@@ -2298,7 +2702,7 @@ def main():
     log(f"launch floor: {launch_floor(flush):.6g} ms (a one-element zero_()"
         f" under the kernels' timing: L2 flushed, CUDA events)")
     rows = (kernel_phase(flush) + contiguous_kernel_phase(flush)
-            + train_kernel_phase(flush))
+            + train_kernel_phase(flush) + families_kernel_phase(flush))
     del flush
     log(f"gqa3 parity: {json.dumps(gqa3_kernel_phase())}")
     parity_phase()
@@ -2323,6 +2727,9 @@ def main():
     log(f"elapsed {time.perf_counter() - t0:.1f}s: training")
     runs += gateway_phase(smi_line)
     log(f"elapsed {time.perf_counter() - t0:.1f}s: gateway")
+    runs += families_phase()
+    log(f"elapsed {time.perf_counter() - t0:.1f}s: encoder-decoder and "
+        f"Griffin families")
     for row in rows:  # launches over every path run
         row["launches"] = sum(run.get(row["name"], 0) for run in runs)
         if row["path"] != "none":

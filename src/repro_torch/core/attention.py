@@ -219,15 +219,19 @@ def dense_reference(q, k, v, *, causal: bool = True,
                      scale=scale, window=window)
 
 
-def _gather_topk(qp, kp, kv_len, q_positions, spec, d, g, window):
+def _gather_topk(qp, kp, kv_len, q_positions, spec, d, g, window,
+                 kv_positions=None):
     """Plain association stage: score packed rows (B, H_kv, G * Sq, W)
-    against logical-order packed keys (B, H_kv, S, W) (gathered pages or
-    the contiguous cache), mask, and run the two-stage top-k, a slice of
-    rows at a time so the (rows, S, W) XOR temporary stays bounded."""
+    against packed keys (B, H_kv, S, W) (gathered pages or the contiguous
+    cache), mask, and run the two-stage top-k, a slice of rows at a time
+    so the (rows, S, W) XOR temporary stays bounded.  Key slot i holds
+    position i, or ``kv_positions[b, i]`` (B, S) for a ring cache."""
     b, hkv, rows, w = qp.shape
     s_log = kp.shape[2]
     sq = rows // g
-    kpos = torch.arange(s_log, dtype=torch.int32, device=qp.device)
+    kpos = (torch.arange(s_log, dtype=torch.int32, device=qp.device)
+            if kv_positions is None
+            else kv_positions.to(torch.int32)[:, None, None, :])
     qpos = q_positions.to(torch.int32)[:, None, None, :].expand(
         b, hkv, g, sq).reshape(b, hkv, rows, 1)
     step = max(1, _GATHER_WORDS // max(1, b * hkv * s_log * w))

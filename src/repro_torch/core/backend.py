@@ -40,6 +40,10 @@ Contiguous camformer decode rows (and prefill chunks) run the BA-CAM
 association kernel (kernels/bacam_topk.py) when ``cfg.use_kernel`` is
 set, and whole-prompt prefill the BA-CAM matrix kernel through
 ``core/attention.attention``; without it they score in plain PyTorch.
+A ring cache (``decode``'s ``kv_positions``: the position each slot
+holds, rotated once the window wraps) masks by those positions, and
+camformer decode against it takes the plain association stage, as the
+reference routes it.
 
 Caches and pools are updated IN PLACE (the reference's functional
 ``dynamic_update_slice`` / ``.at[].set`` would copy a whole cache per
@@ -122,13 +126,6 @@ def _seq_insert(buf, upd, index):
     rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
     buf[rows, :, pos] = upd.transpose(1, 2)
     return buf
-
-
-def _no_ring_cache(kv_positions):
-    if kv_positions is not None:
-        raise NotImplementedError(
-            "ring caches with rotated kv_positions (the windowed model "
-            "families) are not ported yet")
 
 
 def _running_k_scale(k_scale, k, pos, kv_len, base):
@@ -306,11 +303,11 @@ class DenseBackend(AttentionBackend):
 
     def decode(self, q, cache, k, v, cache_index, kv_len, positions, cfg, *,
                kv_positions=None, window=None):
-        _no_ring_cache(kv_positions)
         cache = self.write_cache(cache, k, v, cache_index, cfg)
         ck, cv = cache["k"], cache["v"]
-        kv_pos = torch.arange(ck.shape[2], dtype=torch.int32,
-                              device=q.device)[None]
+        kv_pos = (torch.arange(ck.shape[2], dtype=torch.int32,
+                               device=q.device)[None]
+                  if kv_positions is None else kv_positions)
         kv_valid = kv_pos < kv_len.reshape(-1, 1)
         out = attention(q, ck, cv, self.spec(cfg), causal=True,
                         q_positions=positions, kv_positions=kv_pos,
@@ -428,14 +425,16 @@ class CamformerBackend(AttentionBackend):
 
     def decode(self, q, cache, k, v, cache_index, kv_len, positions, cfg, *,
                kv_positions=None, window=None):
-        _no_ring_cache(kv_positions)
         cache = self.write_cache(cache, k, v, cache_index, cfg)
-        if cfg.distributed_topk and q.shape[0] == 1:
+        if (cfg.distributed_topk and kv_positions is None
+                and q.shape[0] == 1):
             return self._distributed_attend(q, cache, kv_len, positions,
                                             cfg), cache
-        return self._cache_attend(q, cache, kv_len, positions, cfg), cache
+        return self._cache_attend(q, cache, kv_len, positions, cfg,
+                                  kv_positions=kv_positions), cache
 
-    def _cache_attend(self, q, cache, kv_len, positions, cfg):
+    def _cache_attend(self, q, cache, kv_len, positions, cfg,
+                      kv_positions=None):
         """Decode / chunk attention against the packed binary cache.
 
         q: (B, H, Sq, D); kv_len: (B,); positions: (B, Sq).  With
@@ -443,6 +442,11 @@ class CamformerBackend(AttentionBackend):
         runs in kernels/bacam_topk.py, with the query rows of (b, kv head)
         folded as r = g * Sq + s; otherwise in plain PyTorch.  Stage 2,
         the softmax over the survivors and the sparse V gather follow.
+
+        A ring cache (``kv_positions`` (B, L), the position each slot
+        holds) always takes the plain association stage, as the
+        reference routes it: the kernel masks by slot order, and a
+        ring's slots are rotated.
         """
         spec = self.spec(cfg)
         b, h, sq, d = q.shape
@@ -454,7 +458,7 @@ class CamformerBackend(AttentionBackend):
         q_scale = had_scales(qf, keepdim=False)  # (B, H, Sq)
         qp = bacam.pack_bits(sign_pm1(qf)).reshape(b, hkv, g * sq, w)
         kv_len = kv_len.reshape(b).to(torch.int32)
-        if spec.use_kernel:
+        if spec.use_kernel and kv_positions is None:
             from repro_torch.kernels import ops as kops  # local: no cycle
 
             pos = positions.to(torch.int32)[:, None, None, :].expand(
@@ -470,7 +474,8 @@ class CamformerBackend(AttentionBackend):
             top_i = torch.gather(cand_i, -1, sel)
         else:
             top_v, top_i = _gather_topk(qp, cache["k_packed"], kv_len,
-                                        positions, spec, d, g, cfg.window)
+                                        positions, spec, d, g, cfg.window,
+                                        kv_positions=kv_positions)
         top_v = top_v.reshape(b, hkv, g, sq, -1)
         top_i = top_i.reshape(b, hkv, g, sq, -1)
 

@@ -11,19 +11,22 @@ kernel writes 411 MB of scores from 1.8 MB of packed operands, about
 
 A tensor on the CPU takes the plain version (``ref.bacam_scores_ref``);
 a CUDA tensor launches the kernel or raises.  ``launches`` counts kernel
-launches.
+launches, and ``shape_launches`` the same launches by (B, R, Skv, W).
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import bacam_scores_ref
 
-__all__ = ["bacam_mvm", "bacam_scores_ref", "launches"]
+__all__ = ["bacam_mvm", "bacam_scores_ref", "launches", "shape_launches"]
 
 launches = 0  # kernel launches (plain-version calls are not counted)
+shape_launches: Counter = Counter()  # the launches by (B, R, Skv, W)
 
 
 def bacam_mvm(q_packed: torch.Tensor, k_packed: torch.Tensor, *,
@@ -54,4 +57,5 @@ def bacam_mvm(q_packed: torch.Tensor, k_packed: torch.Tensor, *,
     if err:
         raise RuntimeError(f"bacam_mvm launch failed: CUDA error {err}")
     launches += 1
+    shape_launches[(b, r, skv, words)] += 1
     return out

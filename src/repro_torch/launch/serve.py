@@ -9,8 +9,11 @@
         [--deadline-ms 500] [--faults step.error@3] [--device cuda|cpu]
 
 Serves the dense, MoE and VLM families (the VLM text-only, as the
-reference does); the other families raise NotImplementedError naming
-the family.  Runs on the card by default; ``--device cpu`` runs the
+reference does).  The encoder-decoder (``audio``/``encdec``) and Griffin
+(``hybrid``) families have no paged interface, in the reference either:
+the engine refuses them with its ValueError and they run through the
+contiguous steps (launch/steps.py); ``ssm`` is not ported and raises
+NotImplementedError naming the family.  Runs on the card by default; ``--device cpu`` runs the
 plain PyTorch path.  Weights are random, drawn from ``--seed`` (no weights ship with
 the repository).  ``--temperature 0`` (the default) decodes greedily;
 one sampling policy applies to every CLI request.  ``--spec-k N`` turns

@@ -5,10 +5,14 @@
     serve_step(params, tokens, pos, kv_len, caches) -> (logits, caches)
 
 ``md`` is the family's ``ModelDef`` (``models.get_model_def(cfg)``:
-dense, MoE or VLM).  Each step casts the parameters to the config's
-compute type first (a no-op for parameters already in it) and calls the
-model's entry point; the batch goes through as given, so a VLM batch
-takes ``batch["image_embeds"]`` (B, P, d) beside ``batch["tokens"]``.
+dense, MoE, VLM, encoder-decoder or Griffin hybrid); its
+``cache_specs(cfg, batch, cache_len)`` gives the caches the prefill and
+serve steps take (``models.init_pools`` allocates them).  Each step
+casts the parameters to the config's compute type first (a no-op for
+parameters already in it) and calls the model's entry point; the batch
+goes through as given, so a VLM batch takes ``batch["image_embeds"]``
+(B, P, d) and an audio batch ``batch["audio_features"]`` (B, enc_len,
+d) beside ``batch["tokens"]``.
 The reference's sharding assembly (mesh specs of every argument) has no
 counterpart: the port runs on one device.
 """

@@ -1,5 +1,7 @@
-"""The decoder-only LM families (dense, MoE, VLM) in PyTorch: the
-training loss, the paged serving path and the contiguous-cache path."""
+"""The model families in PyTorch: the decoder-only LMs (dense, MoE, VLM:
+the training loss, the paged serving path and the contiguous-cache
+path), the encoder-decoder (models/encdec.py) and the Griffin hybrid
+(models/rglru.py), these two on the loss and the contiguous path."""
 
 from repro_torch.models.convert import (from_jax_params,  # noqa: F401
                                         from_jax_state)

@@ -1,13 +1,26 @@
-"""Shared model layers: norms, RoPE, the gated MLP, embeddings and the
-chunked cross-entropy loss."""
+"""Shared model layers: norms, RoPE, sinusoidal positions, the MLPs,
+embeddings and the chunked cross-entropy loss, with the shapes of their
+parameters."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["apply_norm", "rope", "apply_mlp", "embed_lookup",
-           "head_matrix", "chunked_cross_entropy"]
+__all__ = ["norm_shapes", "apply_norm", "rope", "sinusoidal_positions",
+           "gelu", "mlp_shapes", "apply_mlp", "embed_lookup", "head_matrix",
+           "chunked_cross_entropy"]
+
+
+def norm_shapes(cfg) -> dict:
+    """{leaf: (shape, init)} of a norm: a scale, and a bias for layer
+    norm."""
+    s = {"scale": ((cfg.d_model,), "ones")}
+    if cfg.norm == "layer":
+        s["bias"] = ((cfg.d_model,), "zeros")
+    return s
 
 
 def apply_norm(p, x, cfg, eps: float = 1e-6):
@@ -42,15 +55,49 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Whisper-style absolute embeddings, (B, S) -> (B, S, d) float32:
+    [sin, cos] of positions times exp(-log(1e4) * i / (d/2 - 1))."""
+    half = d // 2
+    f32 = dict(dtype=torch.float32, device=positions.device)
+    # float32 operands throughout, as the reference computes them (a
+    # Python float factor would enter in double precision, and a
+    # division by a Python number is a reciprocal multiply on the card)
+    freqs = torch.exp(torch.tensor(-math.log(10000.0), **f32)
+                      * torch.arange(half, **f32)
+                      / torch.tensor(half - 1, **f32))
+    ang = positions[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def gelu(x):
+    """GELU in its tanh form, the default of the reference's
+    ``jax.nn.gelu`` (the erf form differs by about 1e-3)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_shapes(cfg) -> dict:
+    """{leaf: (shape, init)} of the MLP: gated for ``silu`` / ``geglu``,
+    the plain biased 2-layer MLP (whisper) otherwise."""
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.act in ("silu", "geglu"):
+        return {"w_gate": ((d, f), "normal"), "w_up": ((d, f), "normal"),
+                "w_down": ((f, d), "normal")}
+    return {"w_in": ((d, f), "normal"), "b_in": ((f,), "zeros"),
+            "w_out": ((f, d), "normal"), "b_out": ((d,), "zeros")}
+
+
 def apply_mlp(p, x, cfg):
-    """Gated SiLU MLP: (silu(x W_gate) * x W_up) W_down."""
-    if cfg.act != "silu" or "w_gate" not in p:
-        raise NotImplementedError(
-            f"act={cfg.act!r}: only the gated silu MLP is ported")
+    """The gated MLP, (act(x W_gate) * x W_up) W_down with act silu or
+    (geglu) tanh-GELU, or the plain gelu(x W_in + b_in) W_out + b_out."""
     dt = x.dtype
-    g = x @ p["w_gate"].to(dt)
-    u = x @ p["w_up"].to(dt)
-    return (F.silu(g) * u) @ p["w_down"].to(dt)
+    if "w_gate" in p:
+        g = x @ p["w_gate"].to(dt)
+        u = x @ p["w_up"].to(dt)
+        act = F.silu(g) if cfg.act == "silu" else gelu(g)
+        return (act * u) @ p["w_down"].to(dt)
+    h = gelu(x @ p["w_in"].to(dt) + p["b_in"].to(dt))
+    return h @ p["w_out"].to(dt) + p["b_out"].to(dt)
 
 
 def embed_lookup(p, tokens, cfg, dtype):

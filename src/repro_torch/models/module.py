@@ -1,11 +1,15 @@
-"""Parameters of the decoder-only LM (the dense, MoE and VLM families):
-shapes, seeded init and casting.
+"""Parameters of every ported family: seeded init, casting and tree
+helpers.
 
-The parameter tree mirrors the reference's ``lm_specs`` leaf for leaf,
-with one difference of layout: the reference stacks block parameters
-along a leading ``layers`` axis for ``lax.scan``, while the port keeps
-``blocks`` as a list of per-layer dicts (its layer loop is a Python
-loop).  Matrices keep the (in, out) layout and are applied as ``x @ W``.
+Each family's ``ModelDef.shapes(cfg)`` gives its parameter tree with
+``(shape, init[, std])`` leaves, mirroring the reference's ``specs``
+leaf for leaf, with one difference of layout: the reference stacks
+repeated blocks along a leading ``layers`` axis for ``lax.scan``, while
+the port keeps each stack (``blocks``; ``enc_blocks`` / ``dec_blocks``
+of the encoder-decoder; ``rec1`` / ``rec2`` / ``attn`` of the Griffin
+hybrid) as a list of per-layer dicts, its layer loop being a Python
+loop.  Matrices keep the (in, out) layout and are applied as ``x @ W``.
+The decoder-only LM (dense, MoE and VLM families):
 
     {"embed": {"tok": (V_pad, d), "head": (d, V_pad)},
      "blocks": [{"ln1": {"scale"}, "attn": {"wq", "wk", "wv", "wo"
@@ -16,7 +20,8 @@ loop).  Matrices keep the (in, out) layout and are applied as ``x @ W``.
 An MoE block's ``ffn`` holds ``router`` (d, E_pad) and the expert
 stacks ``w_gate``/``w_up`` (E_pad, d, f) and ``w_down`` (E_pad, f, d)
 instead (models/moe.py).  The VLM family is the same tree: its vision
-tower is a stub of precomputed patch embeddings.
+tower is a stub of precomputed patch embeddings.  models/encdec.py and
+models/rglru.py give their own trees.
 """
 
 from __future__ import annotations
@@ -24,37 +29,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.moe import moe_shapes
 from repro_torch.models.registry import get_model_def
 
-__all__ = ["block_shapes", "init_params", "cast_params", "count_params",
+__all__ = ["param_shapes", "init_params", "cast_params", "count_params",
            "tree_leaves", "tree_map"]
 
 
-def _check_supported(cfg):
-    get_model_def(cfg)  # raises NotImplementedError for an unported family
-    if cfg.act != "silu" or cfg.abs_pos or not cfg.use_rope:
-        raise NotImplementedError(
-            f"{cfg.name!r}: only the gated-silu, RoPE transformer is ported")
-
-
-def block_shapes(cfg) -> dict:
-    """{module: {leaf: (shape, init)}} of one transformer block."""
-    d, q, kv, f = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff
-    norm = {"scale": ((d,), "ones")}
-    if cfg.norm == "layer":
-        norm["bias"] = ((d,), "zeros")
-    attn = {"wq": ((d, q), "normal"), "wk": ((d, kv), "normal"),
-            "wv": ((d, kv), "normal"), "wo": ((q, d), "normal")}
-    if cfg.qkv_bias:
-        attn.update(bq=((q,), "zeros"), bk=((kv,), "zeros"),
-                    bv=((kv,), "zeros"))
-    if cfg.n_experts:
-        ffn = moe_shapes(cfg)
-    else:
-        ffn = {"w_gate": ((d, f), "normal"), "w_up": ((d, f), "normal"),
-               "w_down": ((f, d), "normal")}
-    return {"ln1": dict(norm), "attn": attn, "ln2": dict(norm), "ffn": ffn}
+def param_shapes(cfg) -> dict:
+    """The family's parameter tree of (shape, init[, std]) leaves;
+    NotImplementedError for an unported family."""
+    return get_model_def(cfg).shapes(cfg)
 
 
 def _leaf(shape, init, gen, device, std=None):
@@ -69,33 +53,31 @@ def _leaf(shape, init, gen, device, std=None):
     return torch.randn(shape, generator=gen, device=device) * std
 
 
+def _draw(tree, gen, device):
+    if isinstance(tree, dict):
+        return {k: _draw(v, gen, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_draw(v, gen, device) for v in tree]
+    shape, init, *std = tree
+    return _leaf(shape, init, gen, device, *std)
+
+
 def init_params(cfg, generator: torch.Generator | None = None,
                 device="cuda", *, seed: int = 0) -> dict:
-    """Random float32 parameters drawn from a ``torch.Generator``.
+    """Random float32 parameters drawn from a ``torch.Generator``, leaf
+    by leaf in the order of the family's shape tree.
 
     The distributions are the reference's (``models/module.py``):
-    fan-in scaled normals for matrices, N(0, d_model**-0.5) for the token
-    embedding, ones/zeros for norms and biases.  The numbers differ from
-    the reference's, which draws from ``jax.random``.
+    fan-in scaled normals for matrices unless a leaf states its std
+    (N(0, d_model**-0.5) for the token embedding, r**-0.5 for the RG-LRU
+    gates), ones/zeros for norms, biases and the like.  The numbers
+    differ from the reference's, which draws from ``jax.random``.
     """
-    _check_supported(cfg)
+    shapes = param_shapes(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
-    v, d = cfg.padded_vocab, cfg.d_model
-    embed = {"tok": _leaf((v, d), "embed", generator, dev, std=d**-0.5)}
-    if not cfg.tie_embeddings:
-        embed["head"] = _leaf((d, v), "normal", generator, dev)
-    blocks = []
-    for _ in range(cfg.n_layers):
-        blocks.append({
-            mod: {name: _leaf(shape, init, generator, dev)
-                  for name, (shape, init) in leaves.items()}
-            for mod, leaves in block_shapes(cfg).items()})
-    ln_f = {"scale": torch.ones((d,), device=dev)}
-    if cfg.norm == "layer":
-        ln_f["bias"] = torch.zeros((d,), device=dev)
-    return {"embed": embed, "blocks": blocks, "ln_f": ln_f}
+    return _draw(shapes, generator, dev)
 
 
 def cast_params(params, dtype, device=None):

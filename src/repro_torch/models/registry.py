@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from repro_torch.models import transformer, vlm
+from repro_torch.models import encdec, rglru, transformer, vlm
 from repro_torch.models.transformer import ModelDef
 
 __all__ = ["get_model_def"]
@@ -10,14 +10,16 @@ __all__ = ["get_model_def"]
 _FAMILY = {
     "dense": transformer.make_model_def,
     "moe": transformer.make_model_def,
+    "hybrid": rglru.make_model_def,
+    "encdec": encdec.make_model_def,
+    "audio": encdec.make_model_def,
     "vlm": vlm.make_model_def,
 }
 
 
 def get_model_def(cfg) -> ModelDef:
-    """The family's entry points.  The reference's other families
-    (``ssm``, ``hybrid``, ``encdec``, ``audio``) raise
-    NotImplementedError naming the family."""
+    """The family's entry points.  The reference's ``ssm`` family
+    (rwkv6) raises NotImplementedError naming the family."""
     try:
         return _FAMILY[cfg.family]()
     except KeyError:

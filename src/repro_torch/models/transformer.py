@@ -24,11 +24,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.backend import backends_for
 from repro_torch.models import layers as L
-from repro_torch.models.attention import attention_block
-from repro_torch.models.moe import apply_moe
+from repro_torch.models.attention import attention_block, attn_shapes
+from repro_torch.models.moe import apply_moe, moe_shapes
 
-__all__ = ["ModelDef", "make_model_def", "dtype_of", "lm_cache_specs",
-           "lm_page_specs", "init_pools", "lm_hidden", "lm_loss",
+__all__ = ["ModelDef", "make_model_def", "dtype_of", "block_shapes",
+           "arange_positions", "run_block",
+           "embed_shapes", "lm_shapes", "lm_cache_specs", "lm_page_specs",
+           "init_pools", "last_logits", "lm_hidden", "lm_loss",
            "lm_prefill", "lm_decode", "lm_prefill_paged",
            "lm_verify_paged", "lm_decode_paged"]
 
@@ -37,6 +39,32 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def dtype_of(cfg) -> torch.dtype:
     return _DTYPES[cfg.dtype]
+
+
+def embed_shapes(cfg) -> dict:
+    """{leaf: (shape, init[, std])} of the token embedding (std
+    d_model**-0.5) and, untied, the (d, V_pad) output head."""
+    v, d = cfg.padded_vocab, cfg.d_model
+    s = {"tok": ((v, d), "embed", d**-0.5)}
+    if not cfg.tie_embeddings:
+        s["head"] = ((d, v), "normal")
+    return s
+
+
+def block_shapes(cfg) -> dict:
+    """{module: {leaf: (shape, init)}} of one transformer block."""
+    return {"ln1": L.norm_shapes(cfg), "attn": attn_shapes(cfg),
+            "ln2": L.norm_shapes(cfg),
+            "ffn": moe_shapes(cfg) if cfg.n_experts else L.mlp_shapes(cfg)}
+
+
+def lm_shapes(cfg) -> dict:
+    """The decoder-only LM's parameter tree with (shape, init[, std])
+    leaves (models/module.py draws it): ``blocks`` a list of per-layer
+    dicts."""
+    return {"embed": embed_shapes(cfg),
+            "blocks": [block_shapes(cfg) for _ in range(cfg.n_layers)],
+            "ln_f": L.norm_shapes(cfg)}
 
 
 def lm_page_specs(cfg, n_pages: int, page_size: int, max_batch: int):
@@ -55,23 +83,31 @@ def lm_cache_specs(cfg, batch: int, cache_len: int):
             for bk in backends_for(cfg)]
 
 
-def init_pools(specs, device) -> list:
-    """Zero-filled pools or caches from ``lm_page_specs`` or
-    ``lm_cache_specs``.  Zeros, not empty memory: the candidate indices
-    of masked slots are clamped into the cache and read there at
-    weight 0."""
-    return [{name: torch.zeros(shape, dtype=dt, device=device)
-             for name, (shape, dt) in layer.items()} for layer in specs]
+def init_pools(specs, device):
+    """Zero-filled pools or caches from a tree of (shape, dtype) leaves
+    (``lm_page_specs``, or a family's ``ModelDef.cache_specs``), in the
+    tree's structure.  Zeros, not empty memory: the candidate indices of
+    masked slots are clamped into the cache and read there at weight
+    0."""
+    if isinstance(specs, dict):
+        return {k: init_pools(v, device) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [init_pools(v, device) for v in specs]
+    shape, dt = specs
+    return torch.zeros(shape, dtype=dt, device=device)
 
 
 class ModelDef(NamedTuple):
     """The entry points a family gives its callers, as the reference's
-    ``ModelDef`` bundles them: the training loss and the contiguous-cache
-    steps the launch steps call, and the paged-serving interface
-    ``ServeEngine`` needs (None for a family without a paged cache).  The
-    reference's ``specs`` has no counterpart: ``models.init_params(cfg)``
-    builds the parameters.
+    ``ModelDef`` bundles them: the parameter shapes, the training loss
+    and the contiguous-cache steps the launch steps call, and the
+    paged-serving interface ``ServeEngine`` needs (None for a family
+    without a paged cache).
 
+      shapes(cfg) -> parameter tree of (shape, init[, std]) leaves (the
+          reference's ``specs``; ``models.init_params`` draws it)
+      cache_specs(cfg, batch, cache_len) -> tree of (shape, dtype)
+          leaves (``init_pools`` allocates it)
       prefill(params, batch, caches, cfg) -> (logits, caches)
       decode(params, tokens, pos, kv_len, caches, cfg) -> (logits, caches)
       loss(params, batch, cfg) -> (loss, aux)
@@ -81,6 +117,8 @@ class ModelDef(NamedTuple):
       verify_paged(params, batch, pools, table, cfg) -> ((B,S,V), pools)
     """
 
+    shapes: Callable[..., Any]
+    cache_specs: Callable[..., Any]
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
     loss: Callable[..., Any]
@@ -91,7 +129,8 @@ class ModelDef(NamedTuple):
 
 
 def make_model_def() -> ModelDef:
-    return ModelDef(prefill=lm_prefill, decode=lm_decode, loss=lm_loss,
+    return ModelDef(shapes=lm_shapes, cache_specs=lm_cache_specs,
+                    prefill=lm_prefill, decode=lm_decode, loss=lm_loss,
                     page_specs=lm_page_specs, prefill_paged=lm_prefill_paged,
                     decode_paged=lm_decode_paged,
                     verify_paged=lm_verify_paged)
@@ -114,6 +153,21 @@ def _apply_block(p, x, cfg, *, positions, cache, cache_index, kv_len,
     return x + ff, cache, aux
 
 
+def arange_positions(b, s, device):
+    """Positions 0..S-1 (B, S) int32, the same for every row."""
+    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(
+        b, s)
+
+
+def run_block(block, cfg, train, *args, **kw):
+    """``block(*args, **kw)``; on the train path under autograd with
+    ``cfg.remat == "full"``, in ``torch.utils.checkpoint``, so that its
+    activations are recomputed in the backward pass."""
+    if train and cfg.remat == "full" and torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False, **kw)
+    return block(*args, **kw)
+
+
 def lm_hidden(params, tokens, cfg, *, positions=None, caches=None,
               kv_len=None, page_table=None, cache_index=None,
               scale_base=None, prefix_embeds=None):
@@ -131,12 +185,9 @@ def lm_hidden(params, tokens, cfg, *, positions=None, caches=None,
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(dt), x], dim=1)
     if positions is None:
-        b, s, _ = x.shape
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=tokens.device)[None].expand(b, s)
-    # the train path (no caches) recomputes each block in the backward
-    remat = (caches is None and cfg.remat == "full"
-             and torch.is_grad_enabled())
+        positions = arange_positions(*x.shape[:2], tokens.device)
+    if cfg.abs_pos == "sinusoidal" or not cfg.use_rope:
+        x = x + L.sinusoidal_positions(positions, cfg.d_model).to(dt)
     aux_sum = torch.zeros(2, dtype=torch.float32, device=x.device)
     for i, bk in enumerate(backends_for(cfg)):
         block_args = (params["blocks"][i], x, cfg)
@@ -145,11 +196,9 @@ def lm_hidden(params, tokens, cfg, *, positions=None, caches=None,
                         cache_index=cache_index, kv_len=kv_len,
                         page_table=page_table, scale_base=scale_base,
                         backend=bk)
-        if remat:
-            x, cache, aux = checkpoint(_apply_block, *block_args,
-                                       use_reentrant=False, **block_kw)
-        else:
-            x, cache, aux = _apply_block(*block_args, **block_kw)
+        # the train path (no caches) recomputes each block in the backward
+        x, cache, aux = run_block(_apply_block, cfg, caches is None,
+                                  *block_args, **block_kw)
         if caches is not None:
             caches[i] = cache
         if aux:
@@ -174,6 +223,12 @@ def lm_loss(params, batch, cfg):
         loss = loss + 0.01 * aux["moe_aux_loss"]
     stats.update(aux)
     return loss, stats
+
+
+def last_logits(params, x, cfg):
+    """Vocabulary logits (B, V_pad) float32 of the last position of the
+    final hidden states x (B, S, d)."""
+    return _head_logits(params, x[:, -1], cfg)
 
 
 def _head_logits(params, last, cfg):
@@ -276,10 +331,10 @@ def lm_prefill(params, batch, caches, cfg):
                 params, tokens[:, i * chunk:(i + 1) * chunk], cfg,
                 positions=pos, caches=caches, cache_index=i * chunk,
                 kv_len=kvl)
-        return _head_logits(params, x[:, -1], cfg), caches
+        return last_logits(params, x, cfg), caches
     x, caches, _ = lm_hidden(params, tokens, cfg, caches=caches,
                              cache_index=0, prefix_embeds=image)
-    return _head_logits(params, x[:, -1], cfg), caches
+    return last_logits(params, x, cfg), caches
 
 
 def lm_decode(params, tokens, pos, kv_len, caches, cfg):
@@ -291,7 +346,7 @@ def lm_decode(params, tokens, pos, kv_len, caches, cfg):
         params, tokens.reshape(b, 1), cfg,
         positions=pos.reshape(b, 1).to(torch.int32), caches=caches,
         cache_index=pos.to(torch.int32), kv_len=kv_len.to(torch.int32))
-    return _head_logits(params, x[:, -1], cfg), caches
+    return last_logits(params, x, cfg), caches
 
 
 def lm_decode_paged(params, tokens, pos, kv_len, caches, page_table, cfg,
@@ -304,4 +359,4 @@ def lm_decode_paged(params, tokens, pos, kv_len, caches, page_table, cfg,
         positions=pos.reshape(b, 1).to(torch.int32), caches=caches,
         kv_len=kv_len.to(torch.int32), page_table=page_table,
         scale_base=base)
-    return _head_logits(params, x[:, -1], cfg), caches
+    return last_logits(params, x, cfg), caches

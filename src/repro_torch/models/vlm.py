@@ -35,6 +35,8 @@ def loss(params, batch, cfg):
 
 def make_model_def() -> T.ModelDef:
     return T.ModelDef(
+        shapes=T.lm_shapes,
+        cache_specs=T.lm_cache_specs,
         # batch: tokens (B, S_text) and image_embeds (B, P, d)
         prefill=T.lm_prefill,
         decode=T.lm_decode,

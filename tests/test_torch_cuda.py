@@ -673,6 +673,87 @@ def test_mvm_kernel_at_the_training_shape(cuda):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("b,r,skv,w", [
+    (1, 2016, 2016, 8),  # recurrentgemma prefill, one (b, kv head) of G=10
+    (2, 1500, 1500, 2),  # whisper's non-causal encoder: 1500 keys
+    (64, 32, 1500, 2),  # whisper cross-attention at prefill
+    (64, 1, 1500, 2)])  # and at a decode step: R = 1
+def test_mvm_kernel_at_the_families_shapes(cuda, b, r, skv, w):
+    """Kernel 4 where the encoder-decoder and Griffin paths launch it:
+    W = 8 (head_dim 256), 1500 keys (no multiple of a 16-key group or a
+    128-key tile) and one query row; bit-exact, one launch."""
+    gen = torch.Generator(device=cuda).manual_seed(r + skv)
+    q, k = (torch.randint(-2**31, 2**31 - 1, (b, n, w), generator=gen,
+                          device=cuda, dtype=torch.int32) for n in (r, skv))
+    before = bmvm.launches
+    at_shape = bmvm.shape_launches[(b, r, skv, w)]
+    got = bmvm.bacam_mvm(q, k, d=32 * w)
+    want = bmvm.bacam_scores_ref(q, k, 32 * w)
+    torch.cuda.synchronize()
+    assert bmvm.launches == before + 1
+    assert bmvm.shape_launches[(b, r, skv, w)] == at_shape + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "recurrentgemma-2b"])
+def test_families_kernel_route_equals_plain_route_on_card(cuda, monkeypatch,
+                                                          arch):
+    """The two families at f32 smoke width on ``camformer`` through the
+    contiguous steps: ``use_kernel`` against the plain route on the card
+    (logits within 1e-5 over prefill + 6 decode steps, fed the same
+    tokens).  The kernel route launches kernel 4 for every whole-prompt
+    attention (whisper: encoder, decoder and cross-attention at prefill,
+    cross-attention at each step) and kernel 3 for whisper's decode
+    self-attention; recurrentgemma's ring decode takes the plain CAM
+    search (window 8, a 12-token prompt: the ring wraps), so kernel 3
+    never runs there.  No kernel's plain version runs on the card."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import get_model_def, init_params, init_pools
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(bmvm, "bacam_scores_ref", plain)
+    monkeypatch.setattr(btk, "bacam_topk_stage1_plain", plain)
+    kw = dict(n_layers=8, window=8) if arch == "recurrentgemma-2b" else {}
+    base = smoke_config(arch, attn_backend="camformer", **kw)
+    b, s, steps = 2, 12, 6
+    gen = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, base.vocab, (b, s), generator=gen)}
+    if base.enc_len:
+        batch["audio_features"] = torch.randn(
+            (b, base.enc_len, base.d_model), generator=gen)
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    params = init_params(base, device=cuda, seed=0)
+    feed = torch.randint(0, base.vocab, (steps, b), generator=gen).to(cuda)
+    out = {}
+    for use_kernel in (True, False):
+        cfg = base.replace(use_kernel=use_kernel)
+        md = get_model_def(cfg)
+        caches = init_pools(md.cache_specs(cfg, b, 24), cuda)
+        mvm0, topk0 = bmvm.launches, btk.launches
+        logits, caches = make_prefill_step(md, cfg)(params, batch, caches)
+        serve = make_serve_step(md, cfg)
+        rows = [logits]
+        pos = torch.full((b,), s, dtype=torch.int32, device=cuda)
+        for t in range(steps):
+            logits, caches = serve(params, feed[t], pos, pos + 1, caches)
+            rows.append(logits)
+            pos = pos + 1
+        torch.cuda.synchronize()
+        out[use_kernel] = torch.stack(rows)
+        if arch == "whisper-medium":
+            want = (cfg.enc_layers + cfg.n_layers * (2 + steps),
+                    cfg.n_layers * steps)
+        else:
+            want = (cfg.n_layers // 3, 0)
+        got = (bmvm.launches - mvm0, btk.launches - topk0)
+        assert got == (want if use_kernel else (0, 0)), (use_kernel, got)
+    assert torch.isfinite(out[True]).all()
+    torch.testing.assert_close(out[True], out[False], rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("arch,kw", [
     ("camformer-bert", dict(attn_backend="camformer", use_kernel=True)),
     ("granite-moe-3b-a800m", dict(n_heads=6, n_kv_heads=2))])

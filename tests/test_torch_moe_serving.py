@@ -67,12 +67,14 @@ def test_moe_spec_stream_equals_plain_decode_without_drops():
     assert eng.readbacks == eng.ticks + eng.prefill_ticks
 
 
-@pytest.mark.parametrize("arch,family", [("rwkv6-3b", "ssm"),
-                                         ("recurrentgemma-2b", "hybrid"),
-                                         ("whisper-medium", "audio")])
-def test_engine_refuses_unported_families(arch, family):
+@pytest.mark.parametrize("arch,family,error,match", [
+    ("rwkv6-3b", "ssm", NotImplementedError, "is not ported"),
+    # ported, but with no paged interface, as in the reference
+    ("recurrentgemma-2b", "hybrid", ValueError, "paged serving interface"),
+    ("whisper-medium", "audio", ValueError, "paged serving interface")])
+def test_engine_refuses_unported_families(arch, family, error, match):
     cfg = smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=f"family '{family}'"):
+    with pytest.raises(error, match=f"family '{family}'.*{match}"):
         ServeEngine(cfg, {}, device="cpu")
 
 

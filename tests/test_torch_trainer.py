@@ -280,19 +280,33 @@ def test_trainer_nan_rollback(tmp_path):
     assert t_ckpt.latest_step(trainer2.tcfg.ckpt_dir) == 12  # completed
 
 
-def test_train_cli_on_the_cpu(tmp_path, monkeypatch):
+def _train_cli(tmp_path, arch, steps):
+    """Run ``launch.train`` on the CPU for ``steps`` steps with a
+    checkpoint every 2; check its last step line and checkpoint."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         "camformer-bert", "--smoke", "--steps", "4", "--device", "cpu",
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+         "--smoke", "--steps", str(steps), "--device", "cpu",
          "--ckpt-every", "2", "--ckpt-dir", str(tmp_path / "ck")],
         capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "{'step': 4, 'loss':" in proc.stdout
-    assert t_ckpt.latest_step(str(tmp_path / "ck")) == 4
+    assert f"{{'step': {steps}, 'loss':" in proc.stdout
+    assert t_ckpt.latest_step(str(tmp_path / "ck")) == steps
+
+
+def test_train_cli_on_the_cpu(tmp_path, monkeypatch):
+    _train_cli(tmp_path, "camformer-bert", 4)
     from repro_torch.launch import train
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--arch", "camformer-bert", "--smoke", "--steps", "1",
                     "--ckpt-dir", str(tmp_path / "ck2")])
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "recurrentgemma-2b"])
+def test_train_cli_runs_whisper_and_recurrentgemma(tmp_path, arch):
+    """The encoder-decoder (whisper-medium) and Griffin hybrid
+    (recurrentgemma-2b) families train through the CLI on the CPU: two
+    steps, a checkpoint at step 2."""
+    _train_cli(tmp_path, arch, 2)
