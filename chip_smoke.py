@@ -93,12 +93,18 @@ Phases, in order (each raises on failure; nothing is caught):
      wrap it (kernel 4 exactly 8 times, kernel 3 never: the ring's
      decode takes the plain CAM search); no plain version on the card,
      finite logits; prefill s (whisper's encoder apart), decode
-     tokens/s, peak GB and a profiled window are printed.
+     tokens/s, peak GB (allocated and reserved, after ``gc.collect()``
+     and ``empty_cache``, beside what was live at the run's start) and a
+     profiled window are printed.
 
 Phase 3 also holds kernels 1, 2 (dense and binary) and 2b at granite's
 GQA width (8 kv heads, G = 3), and kernel 4 at the train step's shape
-(128, 1024, 1024) and at phase 10's two shapes (recurrentgemma's
-prefill, W = 8, and whisper's 1500-key encoder), bit-exact; phase 4 also runs granite smoke at G = 3
+(128, 1024, 1024), at phase 10's five shapes (recurrentgemma's prefill,
+W = 8; whisper's 1500-key encoder, decoder prefill and cross-attention)
+and at llava's prefill (W = 4), bit-exact; it times kernel 4's designs
+(tensor cores with the s8 and the b1 product, popc) apart at one shape of
+each W on a path and at 1500 and 1504 keys, and logs them on a
+``bacam_mvm designs`` line; phase 4 also runs granite smoke at G = 3
 card against CPU, and one full-width granite ``apply_moe`` layer card
 against CPU (routing identical, outputs within 1e-5).
 
@@ -107,7 +113,7 @@ kernel and shape: the paged flash and contiguous stage-1 kernels have a
 second ``(sq>1)`` row for their prefill chunks, the paged flash kernel
 also a ``(binary)`` and a verify row, the BA-CAM matrix kernel a
 ``(train)`` row at the train step's shape and a row at each of phase
-10's two shapes; ``path`` names the runs that
+10's five shapes and at llava's; ``path`` names the runs that
 launch it); the last line
 is ``{"ok": true, "device":
 {...}}``.  Without a CUDA card, or without the rest of the repository
@@ -117,6 +123,7 @@ next to this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import re
@@ -272,8 +279,8 @@ def reset_launches():
 
 def read_launches(families=False):
     """Launches since the last reset, by the kernels line's row names;
-    with ``families``, kernel 4's launches at phase 10's shapes apart, in
-    rows of their own."""
+    with ``families``, kernel 4's launches at the shapes of
+    ``FAMILY_MVM_SHAPES`` (phases 7 and 10) apart, in rows of their own."""
     from repro_torch.kernels import (bacam_decode, bacam_mvm, bacam_topk,
                                      bitslice_vmm, flash_attention,
                                      paged_flash_decode)
@@ -709,7 +716,7 @@ def contiguous_kernel_phase(flush):
     outputs = bh * s * s
     rows.append(dict(
         name="bacam_mvm", route="cuda",
-        path="contiguous: camformer-bert and llava prefill",
+        path="contiguous: camformer-bert prefill",
         source="src/repro_torch/csrc/bacam_mvm.cu",
         replaces="src/repro/kernels/bacam_mvm.py:62", max_abs_err=0.0,
         ms=cuda_ms(lambda: bmvm.bacam_mvm(q, k, d=d), flush=flush),
@@ -1405,6 +1412,7 @@ def contiguous_slice_phase():
 # the VLM leg: llava-next-mistral-7b at full width, depth cut to 4 layers;
 # 2 rows of 576 patch embeddings + 320 text tokens in a 1024-token cache
 VLM_LAYERS, VLM_B, VLM_TEXT, VLM_DECODE = 4, 2, 320, 16
+VLM_PATCHES = 576  # llava-next-mistral-7b's n_patches
 
 
 def vlm_contiguous_phase():
@@ -1437,6 +1445,7 @@ def vlm_contiguous_phase():
                       attn_backend="camformer", use_kernel=True,
                       dtype="float32")
     n_img, b = base.n_patches, VLM_B
+    assert n_img == VLM_PATCHES, n_img
     cache_len = CONTIG_CACHE
     rng = np.random.default_rng(SEED)
     batch = {"tokens": torch.from_numpy(
@@ -1466,7 +1475,7 @@ def vlm_contiguous_phase():
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             times["prefill_s"] = time.perf_counter() - t0
-            at_prefill = read_launches()
+            at_prefill = read_launches(families=True)
             out, fed = [lg], []
             pos = torch.full((b,), n_img + VLM_TEXT, dtype=torch.int32,
                              device=dev)
@@ -1481,7 +1490,7 @@ def vlm_contiguous_phase():
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             times["decode_s"] = time.perf_counter() - t0
-            launches = read_launches()
+            launches = read_launches(families=True)
         result = dict(logits=torch.stack(out).cpu(),
                       picks=[t.cpu() for t in fed], launches=launches,
                       at_prefill=at_prefill, plain=plain, **times)
@@ -1506,9 +1515,10 @@ def vlm_contiguous_phase():
     card = run(base, cuda, counted=True, profile=True)
     launches, plain = card["launches"], card["plain"]
     assert plain == {}, f"vlm leg: plain versions ran on the card {plain}"
-    assert card["at_prefill"]["bacam_mvm"] == VLM_LAYERS, card["at_prefill"]
+    assert card["at_prefill"][LLAVA_ROW] == VLM_LAYERS, card["at_prefill"]
     assert card["at_prefill"]["bacam_topk_stage1"] == 0, card["at_prefill"]
-    assert launches["bacam_mvm"] == VLM_LAYERS, launches
+    assert launches[LLAVA_ROW] == VLM_LAYERS, launches
+    assert launches["bacam_mvm"] == 0, launches
     assert launches["bacam_topk_stage1"] == VLM_DECODE * VLM_LAYERS, launches
     assert launches["bacam_topk_stage1 (sq>1)"] == 0, launches
     assert torch.isfinite(card["logits"]).all(), "vlm leg: non-finite"
@@ -2243,16 +2253,21 @@ WHISPER_ENC_ROW = "bacam_mvm (whisper encoder)"
 WHISPER_DEC_ROW = "bacam_mvm (whisper decoder prefill)"
 WHISPER_XPRE_ROW = "bacam_mvm (whisper cross-attention prefill)"
 WHISPER_XDEC_ROW = "bacam_mvm (whisper cross-attention decode)"
+LLAVA_ROW = "bacam_mvm (llava prefill)"
 # (B * H_kv, R, Skv, W) of kernel 4 there: recurrentgemma's prefill (MQA,
 # G = 10 rows of each position, head_dim 256); whisper's non-causal
 # encoder, its decoder's causal prefill, and its cross-attention to the
-# 1500 frames at prefill and at every decode step (16 heads, head_dim 64)
+# 1500 frames at prefill and at every decode step (16 heads, head_dim 64);
+# and phase 7's llava prefill (2 rows x 8 kv heads, G = 4 rows of each of
+# the 896 positions, head_dim 128)
 FAMILY_MVM_SHAPES = {
     RG_ROW: (RG_B, 10 * RG_PROMPT, RG_PROMPT, 8),
     WHISPER_ENC_ROW: (WHISPER_B * 16, 1500, 1500, 2),
     WHISPER_DEC_ROW: (WHISPER_B * 16, WHISPER_PROMPT, WHISPER_PROMPT, 2),
     WHISPER_XPRE_ROW: (WHISPER_B * 16, WHISPER_PROMPT, 1500, 2),
-    WHISPER_XDEC_ROW: (WHISPER_B * 16, 1, 1500, 2)}
+    WHISPER_XDEC_ROW: (WHISPER_B * 16, 1, 1500, 2),
+    LLAVA_ROW: (VLM_B * 8, 4 * (VLM_PATCHES + VLM_TEXT),
+                VLM_PATCHES + VLM_TEXT, 4)}
 FAMILY_MVM_PATHS = {
     RG_ROW: "phase 10: recurrentgemma-2b camformer use_kernel prefill (one "
             "launch an attention layer)",
@@ -2264,19 +2279,23 @@ FAMILY_MVM_PATHS = {
                       "cross-attention at prefill (one launch a layer)",
     WHISPER_XDEC_ROW: "phase 10: whisper-medium camformer use_kernel "
                       "cross-attention at each decode step (one launch a "
-                      "layer a step)"}
+                      "layer a step)",
+    LLAVA_ROW: "phase 7: llava-next-mistral-7b camformer use_kernel "
+               "whole-prompt prefill (one launch a layer)"}
 RG_CHECK_ROWS = 2016  # rows of shape (a) checked per plain-version call
 
 
 def families_kernel_phase(flush):
-    """Kernel 4 at every shape phase 10 launches it at, bit-exact against
-    its plain version and timed beside it, its bound and ``torch.bmm`` of
-    the ±1 bf16 operands with float32 output (4-byte scores, as the
-    function writes): recurrentgemma-2b's prefill (4, 20160, 2016), W =
-    8, never run on the card before; whisper-medium's encoder (64, 1500,
-    1500), whose 1500 keys are no multiple of a group or a key tile, its
-    decoder prefill (64, 32, 32), and its cross-attention (64, 32, 1500)
-    at prefill and (64, 1, 1500) at each decode step, W = 2.  The plain
+    """Kernel 4 at every shape phases 7 and 10 launch it at, bit-exact
+    against its plain version and timed beside it, its bound and
+    ``torch.bmm`` of the ±1 bf16 operands with float32 output (4-byte
+    scores, as the function writes): recurrentgemma-2b's prefill (4,
+    20160, 2016), W = 8; whisper-medium's encoder (64, 1500, 1500), whose
+    1500 keys are no multiple of a group or a key tile, its decoder
+    prefill (64, 32, 32), and its cross-attention (64, 32, 1500) at
+    prefill and (64, 1, 1500) at each decode step, W = 2; llava's prefill
+    (16, 3584, 896), W = 4.  Then the source's designs timed apart
+    (``mvm_design_phase``).  The plain
     version's int64 temporaries at (4, 20160, 2016) would take about 10 GB
     each, so there it runs over slices of RG_CHECK_ROWS rows: the check
     covers every row, and plain_ms is the time of those slices in turn.
@@ -2336,8 +2355,56 @@ def families_kernel_phase(flush):
             f"{rows[-1]['bound_ms']:.6g} ms")
         del got, qf, kf, q, k, scratch
         torch.cuda.empty_cache()
+    mvm_design_phase(gen, flush)
     whisper_decode_topk(gen, flush)
     return rows
+
+
+# kernel 4's designs timed apart at one shape of each W on a path (W = 2:
+# the train step, whisper's encoder, its cross-attention at prefill and at
+# a decode step; W = 4: llava's prefill; W = 8: recurrentgemma's prefill),
+# and at whisper's encoder with 1504 keys (6016-byte rows, 47 whole
+# 128-byte lines) beside its 1500 (6000-byte rows)
+MVM_DESIGN_SHAPES = ((128, 1024, 1024, 2), (64, 1500, 1500, 2),
+                     (64, 1500, 1504, 2), (64, 32, 1500, 2),
+                     (64, 1, 1500, 2), (16, 3584, 896, 4),
+                     (4, 20160, 2016, 8))
+
+
+def mvm_design_phase(gen, flush):
+    """Each design of ``csrc/bacam_mvm.cu`` (``bacam_mvm.launch``, counted
+    nowhere) at ``MVM_DESIGN_SHAPES``: every design's scores equal the
+    popc design's (itself held to the plain version in the kernel rows at
+    the path shapes), then CUDA-event times (L2 flushed) beside the
+    shape's byte bound and the design the source picks.  Logged on a line
+    of its own; the source's design switch is read from these times."""
+    from repro_torch.kernels import bacam_mvm as bmvm
+
+    dev = torch.device("cuda")
+    popc = bmvm.DESIGNS.index("popc")
+    out = []
+    for bh, r, skv, w in MVM_DESIGN_SHAPES:
+        d = 32 * w
+        q, k = (torch.randint(-2**31, 2**31 - 1, (bh, n, w), generator=gen,
+                              device=dev, dtype=torch.int32)
+                for n in (r, skv))
+        want = bmvm.launch(q, k, d=d, design=popc)
+        row = dict(shape=[bh, r, skv, w],
+                   picked=bmvm.DESIGNS[bmvm.plan(r, w)],
+                   bound_ms=bound((bh * r + bh * skv) * w * 4
+                                  + bh * r * skv * 4, 0)["bound_ms"])
+        for design, name in enumerate(bmvm.DESIGNS):
+            got = bmvm.launch(q, k, d=d, design=design)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), f"{name} at {row['shape']}"
+            del got
+            row[name] = cuda_ms(
+                lambda: bmvm.launch(q, k, d=d, design=design), flush=flush)
+        out.append(row)
+        del q, k, want
+        torch.cuda.empty_cache()
+    log(f"bacam_mvm designs (ms; CUDA events, L2 flushed): {json.dumps(out)}")
+    return out
 
 
 def whisper_decode_topk(gen, flush):
@@ -2488,12 +2555,24 @@ def family_run(arch, backend, *, b, prompt, cache_len, steps):
     weights) through ``make_prefill_step`` / ``make_serve_step``:
     prefill, then ``steps`` greedy decode steps, launches counted and
     plain versions on the card refused; 8 more steps profiled after.
-    Returns the readings, the launches at prefill and in all."""
+    Returns the readings, the launches at prefill and in all.
+
+    Memory: ``live_at_entry_gb`` is what earlier phases still hold when
+    the run starts, ``freed_by_gc_gb`` the part of it that only reference
+    cycles kept (``gc.collect()`` frees it before the run); the peak is
+    read over prefill and decode after ``empty_cache`` and
+    ``reset_peak_memory_stats``, as allocated (``peak_mem_gb``, live
+    tensors) and reserved (``peak_reserved_gb``, the allocator's cached
+    blocks too), from ``live_at_start_gb`` (the weights, the caches and
+    what is left of earlier phases)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models import (cast_params, count_params,
                                     get_model_def, init_params, init_pools)
 
+    live_at_entry_gb = torch.cuda.memory_allocated() / 1e9
+    gc.collect()
+    freed_by_gc_gb = live_at_entry_gb - torch.cuda.memory_allocated() / 1e9
     cfg = get_config(arch, attn_backend=backend,
                      use_kernel=backend == "camformer")
     md = get_model_def(cfg)
@@ -2515,7 +2594,11 @@ def family_run(arch, backend, *, b, prompt, cache_len, steps):
         readings["encoder_s"] = time.perf_counter() - t0
     caches = init_pools(md.cache_specs(cfg, b, cache_len), "cuda")
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    readings.update(live_at_entry_gb=live_at_entry_gb,
+                    freed_by_gc_gb=freed_by_gc_gb,
+                    live_at_start_gb=torch.cuda.memory_allocated() / 1e9)
     with plain_calls_on_card() as plain:
         reset_launches()
         t0 = time.perf_counter()
@@ -2554,6 +2637,7 @@ def family_run(arch, backend, *, b, prompt, cache_len, steps):
         readings.update(
             decode_s=decode_s, decode_tokens_per_s=b * steps / decode_s,
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
             plain_calls_on_card=sum(plain.values()))
         readings["profile_decode_8_steps"] = profiled(run)
     assert plain == {}, f"{arch} {backend}: plain versions on the card " \
@@ -2608,14 +2692,14 @@ def families_phase():
 
 def kernel_instance(mangled):
     """``name<N, ...>`` of a mangled ``..._kernel<N, ...>`` (Itanium: a name
-    is its length, then its characters; int template arguments
-    ``Li<N>E``)."""
+    is its length, then its characters; int and bool template arguments
+    ``Li<N>E``, ``Lb<0|1>E``)."""
     for run in re.finditer(r"\d+", mangled):
         for i in range(run.start(), run.end()):
             n = int(mangled[i:run.end()])
             name = mangled[run.end():run.end() + n]
             if name.endswith("_kernel"):
-                inst = re.match(r"I((?:Li\d+E)+)E", mangled[run.end() + n:])
+                inst = re.match(r"I((?:L[ib]\d+E)+)E", mangled[run.end() + n:])
                 args = re.findall(r"\d+", inst.group(1)) if inst else []
                 return name + (f"<{', '.join(args)}>" if args else "")
     return mangled

@@ -488,6 +488,14 @@ class CamformerBackend(AttentionBackend):
         return out.reshape(b, h, sq, d).to(q.dtype)
 
     def _distributed_attend(self, q, cache, kv_len, positions, cfg):
+        """Distributed CAM search over a sequence-sharded cache.  With one
+        process (no ``torch.distributed`` group, or a world of one) no axis
+        shards the cache, and the search is the local one, as the
+        reference returns it when its mesh has no axis larger than 1."""
+        dist = torch.distributed
+        if (not dist.is_available() or not dist.is_initialized()
+                or dist.get_world_size() == 1):
+            return self._cache_attend(q, cache, kv_len, positions, cfg)
         raise NotImplementedError(
             "distributed CAM search (cfg.distributed_topk over a "
             "sequence-sharded cache) is not ported yet")

@@ -150,3 +150,55 @@ def test_page_spec_matches_reference():
             sds = want[name][0]
             assert isinstance(sds, jax.ShapeDtypeStruct)
             assert tuple(shape) == tuple(sds.shape), name
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("heads", [(4, 4), (4, 2)])
+def test_distributed_topk_decode_on_one_process(heads, use_kernel):
+    """A B = 1 camformer decode with ``distributed_topk`` on one process
+    (no ``torch.distributed`` group; no mesh in the reference) takes the
+    local CAM search, as the reference does: within 1e-5 of the
+    reference's output and equal to the port's own run with the flag
+    off.  G = 1 and G = 2, the association stage in plain PyTorch and
+    through the kernel wrappers (their plain versions on the CPU)."""
+    n_heads, n_kv = heads
+    kw = dict(attn_backend="camformer", n_heads=n_heads, n_kv_heads=n_kv,
+              use_kernel=use_kernel)
+    jcfg = j_smoke("mistral-nemo-12b", distributed_topk=True, **kw)
+    tcfg = t_smoke("mistral-nemo-12b", distributed_topk=True, **kw)
+    jb, tb = j_backend("camformer"), t_backend("camformer")
+    from repro_torch.models import init_pools
+
+    length, s, d = 48, 37, tcfg.head_dim
+    rng = np.random.default_rng(n_kv * 2 + use_kernel)
+    k, v = (rng.standard_normal((1, n_kv, s + 1, d)).astype(np.float32)
+            for _ in range(2))
+    q = rng.standard_normal((1, n_heads, 1, d)).astype(np.float32)
+    jc = {name: jnp.zeros(spec[0].shape, spec[0].dtype) for name, spec in
+          jb.cache_spec(jcfg, 1, length, jnp.float32).items()}
+    jc = jb.write_cache(jc, jnp.asarray(k[:, :, :s]), jnp.asarray(v[:, :, :s]),
+                        jnp.asarray(0, jnp.int32), jcfg)
+    kv_len, pos = np.array([s + 1], np.int32), np.array([[s]], np.int32)
+    j_out, _ = jb.decode(jnp.asarray(q), jc, jnp.asarray(k[:, :, s:]),
+                         jnp.asarray(v[:, :, s:]), jnp.asarray(s, jnp.int32),
+                         jnp.asarray(kv_len), jnp.asarray(pos), jcfg)
+
+    def port(cfg):
+        tc = init_pools([tb.cache_spec(cfg, 1, length, torch.float32)],
+                        "cpu")[0]
+        tc = tb.write_cache(tc, torch.from_numpy(k[:, :, :s]),
+                            torch.from_numpy(v[:, :, :s]),
+                            torch.tensor(0, dtype=torch.int32), cfg)
+        out, _ = tb.decode(torch.from_numpy(q), tc,
+                           torch.from_numpy(k[:, :, s:]),
+                           torch.from_numpy(v[:, :, s:]),
+                           torch.tensor(s, dtype=torch.int32),
+                           torch.from_numpy(kv_len), torch.from_numpy(pos),
+                           cfg)
+        return out
+
+    assert not torch.distributed.is_initialized()
+    got = port(tcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_out), rtol=1e-5,
+                               atol=1e-5)
+    assert torch.equal(got, port(tcfg.replace(distributed_topk=False)))

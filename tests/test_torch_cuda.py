@@ -203,11 +203,20 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 # --- the contiguous-path kernels -------------------------------------------
 
-@pytest.mark.parametrize("b,r,skv,w", [
-    (3, 37, 100, 1), (2, 129, 257, 2), (1, 8, 40, 3), (2, 33, 65, 4),
-    (1, 300, 64, 8)])
+# ragged rows and keys on both sides of the design switch: R < 64 and Skv
+# < 32 (popc), R = 1, R a ragged multiple of the 64-row tile (tensor cores),
+# 6000-byte rows (no whole number of 128-byte lines: the line-owning
+# stores) and rows of odd length (no 16-byte alignment)
+MVM_SHAPES = [(3, 37, 100), (1, 1, 20), (2, 129, 257), (2, 96, 1500),
+              (1, 64, 66)]
+
+
+@pytest.mark.parametrize("w", range(1, 9))
+@pytest.mark.parametrize("b,r,skv", MVM_SHAPES)
 def test_mvm_kernel_matches_plain(cuda, b, r, skv, w):
-    rng = np.random.default_rng(r + skv)
+    """The public entry (one launch, the design the source picks) and
+    every design by name, bit-exact at every W."""
+    rng = np.random.default_rng(r + skv + w)
     q, k = _on(cuda, rng.integers(-2**31, 2**31, (b, r, w)).astype(np.int32),
                rng.integers(-2**31, 2**31, (b, skv, w)).astype(np.int32))
     before = bmvm.launches
@@ -216,6 +225,21 @@ def test_mvm_kernel_matches_plain(cuda, b, r, skv, w):
     torch.cuda.synchronize()
     assert bmvm.launches == before + 1
     assert torch.equal(got, want)
+    for design in range(len(bmvm.DESIGNS)):
+        got = bmvm.launch(q, k, d=32 * w, design=design)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), bmvm.DESIGNS[design]
+    assert bmvm.launches == before + 1
+
+
+def test_mvm_kernel_picks_both_designs(cuda):
+    """The source's rule: popc below a 64-row tile (a decode step, R = 1,
+    up to R = 63), the tensor cores from 64 rows, with the s8 product up
+    to W = 2 and the b1 product above."""
+    for w in range(1, 9):
+        product = "tensor cores s8" if w <= 2 else "tensor cores b1"
+        assert [bmvm.DESIGNS[bmvm.plan(r, w)] for r in (1, 63, 64, 20160)] \
+            == ["popc", "popc", product, product]
 
 
 @pytest.mark.parametrize("r,skv,w,group,s1,causal,window,lens,ties", [
@@ -677,11 +701,12 @@ def test_mvm_kernel_at_the_training_shape(cuda):
     (1, 2016, 2016, 8),  # recurrentgemma prefill, one (b, kv head) of G=10
     (2, 1500, 1500, 2),  # whisper's non-causal encoder: 1500 keys
     (64, 32, 1500, 2),  # whisper cross-attention at prefill
-    (64, 1, 1500, 2)])  # and at a decode step: R = 1
+    (64, 1, 1500, 2),  # and at a decode step: R = 1
+    (16, 3584, 896, 4)])  # llava prefill (G = 4 folded into R)
 def test_mvm_kernel_at_the_families_shapes(cuda, b, r, skv, w):
-    """Kernel 4 where the encoder-decoder and Griffin paths launch it:
-    W = 8 (head_dim 256), 1500 keys (no multiple of a 16-key group or a
-    128-key tile) and one query row; bit-exact, one launch."""
+    """Kernel 4 where the encoder-decoder, Griffin and VLM paths launch
+    it: W = 8 (head_dim 256), 1500 keys (no multiple of a 16-key group or
+    a 128-key tile), one query row, and W = 4; bit-exact, one launch."""
     gen = torch.Generator(device=cuda).manual_seed(r + skv)
     q, k = (torch.randint(-2**31, 2**31 - 1, (b, n, w), generator=gen,
                           device=cuda, dtype=torch.int32) for n in (r, skv))
@@ -752,6 +777,47 @@ def test_families_kernel_route_equals_plain_route_on_card(cuda, monkeypatch,
         assert got == (want if use_kernel else (0, 0)), (use_kernel, got)
     assert torch.isfinite(out[True]).all()
     torch.testing.assert_close(out[True], out[False], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_distributed_topk_decode_on_one_card(cuda, use_kernel):
+    """A B = 1 camformer decode with ``distributed_topk`` in one process
+    takes the local CAM search on the card (with ``use_kernel``, one
+    launch of kernel 3): equal to the run with the flag off, and within
+    1e-5 of the CPU (the integer scores are exact; the softmax and the V
+    sum round in another order)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.backend import get_backend
+    from repro_torch.models import init_pools
+
+    cfg = smoke_config("mistral-nemo-12b", attn_backend="camformer",
+                       n_heads=4, n_kv_heads=2, use_kernel=use_kernel,
+                       distributed_topk=True)
+    be = get_backend("camformer")
+    length, s, d = 48, 37, cfg.head_dim
+    gen = torch.Generator().manual_seed(int(use_kernel))
+    k, v = (torch.randn((1, 2, s + 1, d), generator=gen) for _ in range(2))
+    q = torch.randn((1, 4, 1, d), generator=gen)
+
+    def decode(c, dev):
+        i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)
+        cache = init_pools([be.cache_spec(c, 1, length, torch.float32)],
+                           dev)[0]
+        cache = be.write_cache(cache, k[:, :, :s].to(dev),
+                               v[:, :, :s].to(dev), i32(0), c)
+        topk0 = btk.launches
+        out, _ = be.decode(q.to(dev), cache, k[:, :, s:].to(dev),
+                           v[:, :, s:].to(dev), i32(s), i32([s + 1]),
+                           i32([[s]]), c)
+        torch.cuda.synchronize()
+        return out.cpu(), btk.launches - topk0
+
+    got, n = decode(cfg, cuda)
+    assert n == (1 if use_kernel else 0)
+    assert torch.equal(got, decode(cfg.replace(distributed_topk=False),
+                                   cuda)[0])
+    torch.testing.assert_close(got, decode(cfg, torch.device("cpu"))[0],
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("arch,kw", [
