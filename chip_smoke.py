@@ -95,7 +95,27 @@ Phases, in order (each raises on failure; nothing is caught):
      finite logits; prefill s (whisper's encoder apart), decode
      tokens/s, peak GB (allocated and reserved, after ``gc.collect()``
      and ``empty_cache``, beside what was live at the run's start) and a
-     profiled window are printed.
+     profiled window are printed;
+ 11. the ``ssm`` family and the BA-CAM device model: (a) ``rwkv6-3b`` at
+     f32 smoke width (two heads of 64), card against CPU, prefill + 8
+     steps (logits and the carried shifts and WKV state within 1e-4,
+     picks equal) and a train step (loss 1e-5, gradients 1e-4); (b)
+     ``rwkv6-3b`` at full width and depth in bf16 (32 layers, d 2560,
+     3.07 G parameters) through the contiguous steps, 4 x 512-token
+     prompts and 64 greedy steps: no kernel launched, no plain version
+     on the card, finite logits, and the decode steps' peak memory after
+     64 steps no higher than after 8 (the state is O(1)); prefill s,
+     decode tokens/s, peak GB and a profiled window are printed; (c) the
+     device model at camformer-bert's head geometry (1 x 16 x 1024 x
+     64, one tile), 6-bit ADC and 1.4% matchline noise under a fixed raw
+     key, card against CPU: threefry bits identical, normals within 4
+     ulp, ADC scores equal away from the ADC's rounding boundaries,
+     ``attention`` in ``camformer`` mode within 1e-4 (with
+     ``use_kernel``: no kernel launched); 7-bit scores at d 256 equal to
+     the exact integer path; the top-32 recall of the noisy 6-bit scores
+     against the exact ones printed (a reading, not a gate); then
+     ``examples/torch_quickstart.py`` runs on the card in a subprocess
+     and must exit 0.
 
 Phase 3 also holds kernels 1, 2 (dense and binary) and 2b at granite's
 GQA width (8 kv heads, G = 3), and kernel 4 at the train step's shape
@@ -2476,6 +2496,58 @@ def family_batch(cfg, b, prompt, dev, seed=SEED):
     return {k: v.to(dev) for k, v in batch.items()}
 
 
+def card_cpu_decode(cfg, params, batch, steps, cache_len):
+    """Prefill ``batch`` and decode ``steps`` greedy steps on the CPU and
+    on the card from the same parameters, both fed the CPU's picks.
+    Returns ({device: stacked logits}, {device: final caches}) on the
+    host."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import cast_params, get_model_def, init_pools
+
+    md = get_model_def(cfg)
+    prefill, serve = make_prefill_step(md, cfg), make_serve_step(md, cfg)
+    b, s = batch["tokens"].shape
+    logits, caches_out, fed = {}, {}, []
+    for devname in ("cpu", "cuda"):
+        dev = torch.device(devname)
+        p = cast_params(params, torch.float32, dev)
+        caches = init_pools(md.cache_specs(cfg, b, cache_len), dev)
+        lg, caches = prefill(p, {k: v.to(dev) for k, v in batch.items()},
+                             caches)
+        rows = [lg]
+        pos = torch.full((b,), s, dtype=torch.int32, device=dev)
+        for step in range(steps):
+            if devname == "cpu":
+                fed.append(torch.argmax(rows[-1], -1))
+            lg, caches = serve(p, fed[step].to(dev), pos, pos + 1, caches)
+            rows.append(lg)
+            pos = pos + 1
+        logits[devname] = torch.stack(rows).cpu()
+        caches_out[devname] = caches
+    return logits, caches_out
+
+
+def card_cpu_train(cfg, params, batch):
+    """One train step's loss and gradients on the card against the CPU:
+    (loss error, loss within 1e-5, largest gradient error, every
+    gradient within 1e-4, the card's loss)."""
+    from repro_torch.launch.steps import make_value_and_grad
+    from repro_torch.models import cast_params, get_model_def
+    from repro_torch.models.module import tree_leaves
+
+    def grads(dev):
+        loss, _, g = make_value_and_grad(get_model_def(cfg), cfg)(
+            cast_params(params, torch.float32, dev),
+            {k: v.to(dev) for k, v in batch.items()})
+        return loss.cpu(), [t.cpu() for t in tree_leaves(g)]
+
+    (l_card, g_card), (l_cpu, g_cpu) = grads("cuda"), grads("cpu")
+    e_loss, ok_loss = close(l_card, l_cpu, 1e-5)
+    e_grad = max(close(a, c, 1e-4)[0] for a, c in zip(g_card, g_cpu))
+    ok_grad = all(close(a, c, 1e-4)[1] for a, c in zip(g_card, g_cpu))
+    return e_loss, ok_loss, e_grad, ok_grad, l_card
+
+
 def families_parity_phase():
     """At f32 smoke width, card against CPU: whisper-medium (2 encoder +
     2 decoder layers) and recurrentgemma-2b (8 layers: two periods and
@@ -2485,11 +2557,7 @@ def families_parity_phase():
     and the card's picks equal; then one train step's loss (1e-5) and
     gradients (1e-4) on ``camformer`` with ``use_kernel``."""
     from repro_torch.configs import smoke_config
-    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
-                                          make_value_and_grad)
-    from repro_torch.models import cast_params, get_model_def, init_params
-    from repro_torch.models import init_pools
-    from repro_torch.models.module import tree_leaves
+    from repro_torch.models import init_params
 
     out = {}
     for arch, kw in (("whisper-medium", {}),
@@ -2497,29 +2565,11 @@ def families_parity_phase():
         for backend, use_kernel in (("dense", False), ("camformer", True)):
             cfg = smoke_config(arch, attn_backend=backend,
                                use_kernel=use_kernel, **kw)
-            md = get_model_def(cfg)
-            prefill, serve = (make_prefill_step(md, cfg),
-                              make_serve_step(md, cfg))
             params = init_params(cfg, device="cpu", seed=SEED)
             b, s, steps = 3, 24, 8
-            batch = family_batch(cfg, b, s, "cpu")
-            logits, fed = {}, []
-            for devname in ("cpu", "cuda"):
-                dev = torch.device(devname)
-                p = cast_params(params, torch.float32, dev)
-                caches = init_pools(md.cache_specs(cfg, b, s + steps), dev)
-                lg, caches = prefill(
-                    p, {k: v.to(dev) for k, v in batch.items()}, caches)
-                rows = [lg]
-                pos = torch.full((b,), s, dtype=torch.int32, device=dev)
-                for step in range(steps):
-                    if devname == "cpu":
-                        fed.append(torch.argmax(rows[-1], -1))
-                    lg, caches = serve(p, fed[step].to(dev), pos, pos + 1,
-                                       caches)
-                    rows.append(lg)
-                    pos = pos + 1
-                logits[devname] = torch.stack(rows).cpu()
+            logits, _ = card_cpu_decode(cfg, params,
+                                        family_batch(cfg, b, s, "cpu"),
+                                        steps, s + steps)
             err, ok = close(logits["cuda"], logits["cpu"], 1e-4)
             assert ok, f"family parity {arch} {backend}: max abs err {err}"
             assert torch.equal(logits["cuda"].argmax(-1),
@@ -2530,17 +2580,8 @@ def families_parity_phase():
         params = init_params(cfg, device="cpu", seed=SEED)
         batch = family_batch(cfg, 2, 32, "cpu", seed=SEED + 1)
         batch["labels"] = torch.roll(batch["tokens"], -1, 1)
-
-        def grads(dev):
-            loss, _, g = make_value_and_grad(get_model_def(cfg), cfg)(
-                cast_params(params, torch.float32, dev),
-                {k: v.to(dev) for k, v in batch.items()})
-            return loss.cpu(), [t.cpu() for t in tree_leaves(g)]
-
-        (l_card, g_card), (l_cpu, g_cpu) = grads("cuda"), grads("cpu")
-        e_loss, ok_loss = close(l_card, l_cpu, 1e-5)
-        e_grad = max(close(a, c, 1e-4)[0] for a, c in zip(g_card, g_cpu))
-        ok_grad = all(close(a, c, 1e-4)[1] for a, c in zip(g_card, g_cpu))
+        e_loss, ok_loss, e_grad, ok_grad, l_card = card_cpu_train(
+            cfg, params, batch)
         assert torch.isfinite(l_card) and ok_loss and ok_grad, \
             f"family train parity {arch}: loss {e_loss} grad {e_grad}"
         out[f"{arch} train"] = dict(loss=e_loss, grad=e_grad)
@@ -2550,12 +2591,17 @@ def families_parity_phase():
     return out
 
 
-def family_run(arch, backend, *, b, prompt, cache_len, steps):
+def family_run(arch, backend, *, b, prompt, cache_len, steps,
+               probe_step=None):
     """One family at full width and depth in bf16 (seeded random
     weights) through ``make_prefill_step`` / ``make_serve_step``:
     prefill, then ``steps`` greedy decode steps, launches counted and
     plain versions on the card refused; 8 more steps profiled after.
     Returns the readings, the launches at prefill and in all.
+
+    With ``probe_step`` (a state O(1) in the sequence) the decode steps'
+    own peak is read apart, after ``probe_step`` steps and after all of
+    them, and must not grow beyond ``STATE_SLACK_BYTES``.
 
     Memory: ``live_at_entry_gb`` is what earlier phases still hold when
     the run starts, ``freed_by_gc_gb`` the part of it that only reference
@@ -2606,17 +2652,32 @@ def family_run(arch, backend, *, b, prompt, cache_len, steps):
         torch.cuda.synchronize()
         readings["prefill_s"] = time.perf_counter() - t0
         at_prefill = read_launches(families=True)
+        if probe_step:  # the decode steps' peak, apart from the prefill's
+            prefill_peak = (torch.cuda.max_memory_allocated(),
+                            torch.cuda.max_memory_reserved())
+            torch.cuda.reset_peak_memory_stats()
         pos = torch.full((b,), prompt, dtype=torch.int32, device="cuda")
         picks = []
         t0 = time.perf_counter()
-        for _ in range(steps):
+        for i in range(steps):
             tok = torch.argmax(logits, -1)
             picks.append(tok)
             logits, caches = serve(params, tok, pos, pos + 1, caches)
             pos = pos + 1
+            if i + 1 == probe_step:  # the allocator counts on the host
+                peak_at_probe = torch.cuda.max_memory_allocated()
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
         launches = read_launches(families=True)
+        if probe_step:
+            decode_peak = torch.cuda.max_memory_allocated()
+            readings.update(
+                decode_peak_gb_at_probe=peak_at_probe / 1e9,
+                decode_peak_gb_at_end=decode_peak / 1e9,
+                prefill_peak_gb=prefill_peak[0] / 1e9)
+            assert decode_peak <= peak_at_probe + STATE_SLACK_BYTES, \
+                f"{arch}: decode memory grew {peak_at_probe} -> " \
+                f"{decode_peak} bytes from step {probe_step} to {steps}"
         assert torch.isfinite(logits).all(), f"{arch} {backend}: non-finite"
         picks = torch.stack(picks)
         assert bool(((picks >= 0) & (picks < cfg.vocab)).all())
@@ -2634,10 +2695,14 @@ def family_run(arch, backend, *, b, prompt, cache_len, steps):
                     state["pos"] + 1, state["caches"])
                 state["pos"] = state["pos"] + 1
 
+        peaks = (torch.cuda.max_memory_allocated(),
+                 torch.cuda.max_memory_reserved())
+        if probe_step:
+            peaks = (max(peaks[0], prefill_peak[0]),
+                     max(peaks[1], prefill_peak[1]))
         readings.update(
             decode_s=decode_s, decode_tokens_per_s=b * steps / decode_s,
-            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-            peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+            peak_mem_gb=peaks[0] / 1e9, peak_reserved_gb=peaks[1] / 1e9,
             plain_calls_on_card=sum(plain.values()))
         readings["profile_decode_8_steps"] = profiled(run)
     assert plain == {}, f"{arch} {backend}: plain versions on the card " \
@@ -2687,6 +2752,189 @@ def families_phase():
         assert all(v == 0 for k, v in launches.items() if k != RG_ROW), \
             launches  # the ring decode takes the plain CAM search
         runs.append(launches)
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the ssm family (rwkv6-3b) and the BA-CAM device model
+
+# rwkv6-3b: 4 prompts of 512 tokens, then 64 greedy steps; the decode
+# peak after 8 steps bounds the rest, the state being O(1)
+RWKV_B, RWKV_PROMPT, RWKV_DECODE, RWKV_PROBE = 4, 512, 64, 8
+# the picks kept (512 B each after the allocator's rounding) and one
+# 2 MiB allocator block
+STATE_SLACK_BYTES = 2 * 2**20
+# the device model at camformer-bert's head geometry (one 64-bit tile)
+DM_SHAPE = (1, 16, 1024, 64)
+DM_KEY = (0, 42)  # a raw key: two uint32 words
+DM_SIGMA, DM_BITS = 0.014, 6
+# the normals' bound, card against CPU: log1p is CUDA's on one side and
+# the C library's on the other, each within an ulp or two of the true
+# value (tests/test_torch_bacam_device.py reasons the bound)
+NORMAL_ULP = 4
+ADC_BOUNDARY = 1e-5  # match counts this close to a boundary may differ
+
+
+def rwkv_parity_phase():
+    """Phase 11 (a): ``rwkv6-3b`` at f32 smoke width (2 layers, two heads
+    of 64), card against CPU: prefill of 24 tokens and 8 greedy steps,
+    both fed the CPU's picks, logits within 1e-4 and picks equal, the
+    carried shifts and WKV state within 1e-4; a train step (remat): loss
+    1e-5, gradients 1e-4; no kernel launched."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import init_params
+
+    cfg = smoke_config("rwkv6-3b", d_model=128, remat="full")
+    params = init_params(cfg, device="cpu", seed=SEED)
+    with plain_calls_on_card() as plain:
+        reset_launches()
+        logits, caches = card_cpu_decode(
+            cfg, params, family_batch(cfg, 3, 24, "cpu"), 8, 32)
+        batch = family_batch(cfg, 2, 32, "cpu", seed=SEED + 1)
+        batch["labels"] = torch.roll(batch["tokens"], -1, 1)
+        e_loss, ok_loss, e_grad, ok_grad, l_card = card_cpu_train(
+            cfg, params, batch)
+        launches = read_launches()
+    err, ok = close(logits["cuda"], logits["cpu"], 1e-4)
+    assert ok, f"rwkv6 parity: logits max abs err {err}"
+    assert torch.equal(logits["cuda"].argmax(-1), logits["cpu"].argmax(-1))
+    state = {}
+    for name, want in caches["cpu"].items():
+        state[name], ok = close(caches["cuda"][name].cpu(), want, 1e-4)
+        assert ok, f"rwkv6 parity: state {name} max abs err {state[name]}"
+    assert torch.isfinite(l_card) and ok_loss and ok_grad, \
+        f"rwkv6 train parity: loss {e_loss} grad {e_grad}"
+    assert plain == {} and not any(launches.values()), (plain, launches)
+    out = dict(logits=err, state=state, train=dict(loss=e_loss, grad=e_grad))
+    log(f"rwkv6 parity smoke, card vs CPU max abs err: {json.dumps(out)} "
+        f"(tol 1e-4 logits and state, greedy picks identical; train 1e-5 "
+        f"loss, 1e-4 gradients; no kernel launched)")
+    return launches
+
+
+def rwkv_phase():
+    """Phase 11 (b): ``rwkv6-3b`` at full width and depth in bf16 through
+    the contiguous steps: no kernel, no plain version on the card, finite
+    logits, the decode peak flat from step ``RWKV_PROBE``."""
+    _, launches = family_run(
+        "rwkv6-3b", "dense", b=RWKV_B, prompt=RWKV_PROMPT,
+        cache_len=RWKV_PROMPT + RWKV_DECODE, steps=RWKV_DECODE,
+        probe_step=RWKV_PROBE)
+    assert not any(launches.values()), launches
+    return launches
+
+
+def near_adc_boundary(m, bits=DM_BITS, cam_w=64):
+    """Elements of the noisy match counts ``m`` within ADC_BOUNDARY of a
+    rounding boundary of the ``bits`` ADC."""
+    t = m.double() * ((1 << bits) - 1) / cam_w
+    return (t - t.floor() - 0.5).abs() * cam_w / ((1 << bits) - 1) \
+        < ADC_BOUNDARY
+
+
+def device_model_phase():
+    """Phase 11 (c): the BA-CAM device model on the card against the CPU
+    at camformer-bert's head geometry (``DM_SHAPE``, one 64-bit tile),
+    the 6-bit ADC with 1.4% matchline noise under a fixed raw key: the
+    threefry bits identical, the normals within ``NORMAL_ULP``, the ADC
+    scores equal away from its rounding boundaries, ``attention`` in
+    ``camformer`` mode within 1e-4 on every row without such a score
+    (with ``use_kernel``: no kernel launched, no plain version on the
+    card); at d 256 (4 tiles) 7-bit scores equal to the exact integer
+    path; then, a reading, the top-32 recall of the noisy 6-bit scores
+    against the exact ones; last, ``examples/torch_quickstart.py`` on
+    the card in a subprocess."""
+    import os
+
+    from repro_torch.core import (AttentionSpec, attention, bacam,
+                                  single_stage_topk, topk_recall)
+    from repro_torch.core.binarize import binarize_qk, sign_pm1
+    from repro_torch.serving import prng
+
+    b, h, s, d = DM_SHAPE
+    rng = np.random.default_rng(SEED)
+    q, k, v = (torch.from_numpy(rng.standard_normal(DM_SHAPE).astype(
+        np.float32)) for _ in range(3))
+    key = torch.tensor(DM_KEY, dtype=torch.int64)
+    noise_shape = (b, h, 1, s, s, d // 64)  # (B, H_kv, G, Sq, Skv, T)
+    n = math.prod(noise_shape)
+    assert torch.equal(prng.random_bits(key.cuda(), n).cpu(),
+                       prng.random_bits(key, n)), "threefry bits differ"
+    scale = DM_SIGMA * 64
+    noise = prng.normal(key, noise_shape, scale=scale)
+    ulp = (noise.view(torch.int32).long() - prng.normal(
+        key.cuda(), noise_shape, scale=scale).cpu().view(torch.int32).long()
+           ).abs()
+    assert int(ulp.max()) <= NORMAL_ULP, f"normals {int(ulp.max())} ulp"
+    qb, kb, _, _ = binarize_qk(q.reshape(b, h, 1, s, d), k, with_scales=True)
+    kb = kb[:, :, None]
+    kw = dict(exact=False, adc_bits=DM_BITS, noise_sigma=DM_SIGMA)
+    want = bacam.bacam_scores(qb, kb, rng=key, **kw)
+    got = bacam.bacam_scores(qb.cuda(), kb.cuda(), rng=key.cuda(), **kw).cpu()
+    exact = bacam.binary_scores_exact(qb, kb)
+    near = near_adc_boundary(((exact[..., None] + 64) * 0.5 + noise).clamp(
+        0, 64))[..., 0]
+    assert torch.equal(got[~near], want[~near]), "ADC scores differ"
+    spec = AttentionSpec(mode="camformer", adc_bits=DM_BITS,
+                         noise_sigma=DM_SIGMA)
+    want_out = attention(q, k, v, spec, rng=key)
+    on_card = [t.cuda() for t in (q, k, v)]
+    card_spec = spec.replace(use_kernel=True)
+    with plain_calls_on_card() as plain:
+        reset_launches()
+        got_out = attention(*on_card, card_spec, rng=key.cuda()).cpu()
+        launches = read_launches()
+    assert plain == {} and not any(launches.values()), (plain, launches)
+    rows = ~near.reshape(b, h, s, s).any(-1)
+    out_err, ok = close(got_out[rows], want_out[rows], 1e-4)
+    assert ok, f"device-model attention: max abs err {out_err}"
+    card_ms = cuda_ms(lambda: attention(*on_card, card_spec,
+                                        rng=key.cuda()), n=5, warmup=1)
+    q4, k4 = (sign_pm1(torch.from_numpy(rng.standard_normal(
+        (h, 512, 256)).astype(np.float32))).cuda() for _ in range(2))
+    tiled = bacam.bacam_scores(q4, k4, exact=False, adc_bits=7)
+    assert torch.equal(tiled, bacam.bacam_scores(q4, k4).float()), \
+        "d 256: 7-bit scores differ from the exact integer path"
+    exact_card = exact.cuda()
+    recall = topk_recall(single_stage_topk(got.cuda(), 32)[1],
+                         single_stage_topk(exact_card, 32)[1])
+    readings = dict(
+        shape=list(DM_SHAPE), noise_elements=n,
+        normals_differing=int((ulp > 0).sum()), normals_max_ulp=int(ulp.max()),
+        scores_near_boundary=int(near.sum()),
+        scores_differing=int((got != want).sum()),
+        attention_rows_checked=int(rows.sum()), attention_max_abs_err=out_err,
+        attention_card_ms=card_ms,
+        mean_abs_score_error=float((got - exact).abs().mean()),
+        top32_recall_vs_exact=float(recall.mean()))
+    log(f"device model card vs CPU (6-bit ADC, sigma 1.4%, camformer-bert "
+        f"heads): {json.dumps(readings)}")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable,
+                           str(ROOT / "examples" / "torch_quickstart.py")],
+                          capture_output=True, text=True, cwd=ROOT, env=env,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    for line in proc.stdout.strip().splitlines():
+        log(f"  torch_quickstart: {line}")
+    log(f"torch_quickstart on the card: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def ssm_device_phase():
+    """Phase 11: rwkv6-3b card against CPU and at full width, then the
+    device model.  Returns the runs' launches (none)."""
+    runs, took = [], {}
+    for name, part in (("a", rwkv_parity_phase), ("b", rwkv_phase),
+                       ("c", device_model_phase)):
+        t0 = time.perf_counter()
+        runs.append(part())
+        took[name] = time.perf_counter() - t0
+    log(f"phase 11 parts, s: {json.dumps(took)}")
     return runs
 
 
@@ -2814,6 +3062,9 @@ def main():
     runs += families_phase()
     log(f"elapsed {time.perf_counter() - t0:.1f}s: encoder-decoder and "
         f"Griffin families")
+    runs += ssm_device_phase()
+    log(f"elapsed {time.perf_counter() - t0:.1f}s: ssm family and device "
+        f"model")
     for row in rows:  # launches over every path run
         row["launches"] = sum(run.get(row["name"], 0) for run in runs)
         if row["path"] != "none":

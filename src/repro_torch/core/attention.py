@@ -44,10 +44,12 @@ class AttentionSpec:
     k_top: int = 32
     group_size: int = 16  # CAM_H
     stage1_k: int = 2
-    # device-fidelity knobs of the reference's benchmarks: not ported, they
-    # raise in core/bacam.bacam_scores (None/0.0 is the exact integer path)
+    # device-fidelity knobs (the fidelity benchmarks; None/0.0 is the
+    # exact integer path): core/bacam's device model, ADC and matchline
+    # noise per cam_w-bit tile, noise keyed by attention's ``rng``
     adc_bits: int | None = None
     noise_sigma: float = 0.0
+    cam_w: int = bacam.CAM_W
     # straight-through training binarization (core/binarize.sign_ste)
     trainable_binarize: bool = False
     # route binary scoring through the BA-CAM CUDA kernel
@@ -133,13 +135,19 @@ def _split_gqa(q: torch.Tensor, h_kv: int) -> torch.Tensor:
     return q.reshape(b, h_kv, h // h_kv, sq, d)
 
 
-def _binary_scores(qg, k, spec: AttentionSpec):
+def _binary_scores(qg, k, spec: AttentionSpec, rng=None):
     """Binary scores (B, H_kv, G, Sq, Skv) float32 and the softmax
-    temperature (B, H_kv, G, Sq, 1) in q's dtype."""
+    temperature (B, H_kv, G, Sq, 1) in q's dtype.  With ``adc_bits`` or
+    ``noise_sigma`` the scores come from the device model (noise over
+    the broadcast (B, H_kv, G, Sq, Skv, tiles) shape, keyed by ``rng``),
+    never from the kernel, as in the reference."""
     qb, kb, q_scale, k_scale = binarize_qk(
         qg, k, trainable=spec.trainable_binarize, with_scales=True)
-    if (spec.use_kernel and spec.adc_bits is None
-            and spec.noise_sigma == 0.0):
+    if spec.adc_bits is not None or spec.noise_sigma != 0.0:
+        scores = bacam.bacam_scores(
+            qb, kb[:, :, None], cam_w=spec.cam_w, adc_bits=spec.adc_bits,
+            noise_sigma=spec.noise_sigma, rng=rng, exact=False)
+    elif spec.use_kernel:
         from repro_torch.kernels import ops as kops  # local: no cycle
 
         b, hkv, g, sq, d = qb.shape
@@ -148,9 +156,7 @@ def _binary_scores(qg, k, spec: AttentionSpec):
                                kb.reshape(b * hkv, skv, d))
         scores = s3.reshape(b, hkv, g, sq, skv)
     else:
-        scores = bacam.bacam_scores(qb, kb[:, :, None],
-                                    adc_bits=spec.adc_bits,
-                                    noise_sigma=spec.noise_sigma)
+        scores = bacam.bacam_scores(qb, kb[:, :, None])
     # HAD temperature: the per-row q scale and the per-head k scale, so
     # selection on the raw scores orders keys as the hardware does
     k_scale_head = k_scale.mean(dim=-2, keepdim=True)  # (B, H_kv, 1, 1)
@@ -161,12 +167,14 @@ def _binary_scores(qg, k, spec: AttentionSpec):
 def attention(q, k, v, spec: AttentionSpec = AttentionSpec(), *,
               causal: bool = True, q_positions=None, kv_positions=None,
               kv_valid=None, window: int | None = None,
-              scale: float | None = None):
+              scale: float | None = None, rng=None):
     """Multi-head (GQA) attention in the spec's mode.
 
     q: (B, H, Sq, D); k: (B, H_kv, Skv, D); v: (B, H_kv, Skv, Dv).
-    Masking as ``make_mask``; scale defaults to 1/sqrt(D).  Returns
-    (B, H, Sq, Dv) in q's dtype.
+    Masking as ``make_mask``; scale defaults to 1/sqrt(D); ``rng`` (a
+    raw key, two uint32 words as int64) keys the device model's
+    matchline noise (``spec.noise_sigma``).  Returns (B, H, Sq, Dv) in
+    q's dtype.
     """
     b, h, sq, d = q.shape
     h_kv, skv = v.shape[1], v.shape[2]
@@ -183,7 +191,7 @@ def attention(q, k, v, spec: AttentionSpec = AttentionSpec(), *,
         raise ValueError(f"unknown attention mode {spec.mode!r}")
 
     qg = _split_gqa(q, h_kv)
-    scores, temp = _binary_scores(qg, k, spec)
+    scores, temp = _binary_scores(qg, k, spec, rng)
     if spec.mode == "binary":
         # XNOR-Net/HAD dequant: q.k ~ alpha_q alpha_k (qb.kb)
         return _softmax_av(scores * temp * scale, mask5, v, q)

@@ -5,7 +5,7 @@
     serve_step(params, tokens, pos, kv_len, caches) -> (logits, caches)
 
 ``md`` is the family's ``ModelDef`` (``models.get_model_def(cfg)``:
-dense, MoE, VLM, encoder-decoder or Griffin hybrid); its
+dense, MoE, VLM, encoder-decoder, Griffin hybrid or RWKV-6); its
 ``cache_specs(cfg, batch, cache_len)`` gives the caches the prefill and
 serve steps take (``models.init_pools`` allocates them).  Each step
 casts the parameters to the config's compute type first (a no-op for

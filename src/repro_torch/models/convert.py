@@ -2,9 +2,9 @@
 
 The reference's parameters (each family's ``specs``) are nested dicts
 whose repeated blocks are stacked along a leading ``layers`` axis:
-``blocks`` of the decoder-only LM, ``enc_blocks`` / ``dec_blocks`` of
-the encoder-decoder, ``rec1`` / ``rec2`` / ``attn`` of the Griffin
-hybrid (its trailing ``tail_rec*`` layers are unstacked).  Its train
+``blocks`` of the decoder-only LM and of RWKV-6, ``enc_blocks`` /
+``dec_blocks`` of the encoder-decoder, ``rec1`` / ``rec2`` / ``attn`` of
+the Griffin hybrid (its trailing ``tail_rec*`` layers are unstacked).  Its train
 state is ``{"params", "opt": {"m", "v", "step"}}`` with m and v shaped
 like the parameters.  The port keeps each stack as a list of per-layer
 dicts (models/module.py), matrices in the same (in, out) layout.

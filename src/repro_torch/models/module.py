@@ -5,10 +5,10 @@ Each family's ``ModelDef.shapes(cfg)`` gives its parameter tree with
 ``(shape, init[, std])`` leaves, mirroring the reference's ``specs``
 leaf for leaf, with one difference of layout: the reference stacks
 repeated blocks along a leading ``layers`` axis for ``lax.scan``, while
-the port keeps each stack (``blocks``; ``enc_blocks`` / ``dec_blocks``
-of the encoder-decoder; ``rec1`` / ``rec2`` / ``attn`` of the Griffin
-hybrid) as a list of per-layer dicts, its layer loop being a Python
-loop.  Matrices keep the (in, out) layout and are applied as ``x @ W``.
+the port keeps each stack (``blocks``, also RWKV-6's; ``enc_blocks`` /
+``dec_blocks`` of the encoder-decoder; ``rec1`` / ``rec2`` / ``attn`` of
+the Griffin hybrid) as a list of per-layer dicts, its layer loop being a
+Python loop.  Matrices keep the (in, out) layout and are applied as ``x @ W``.
 The decoder-only LM (dense, MoE and VLM families):
 
     {"embed": {"tok": (V_pad, d), "head": (d, V_pad)},
@@ -20,8 +20,8 @@ The decoder-only LM (dense, MoE and VLM families):
 An MoE block's ``ffn`` holds ``router`` (d, E_pad) and the expert
 stacks ``w_gate``/``w_up`` (E_pad, d, f) and ``w_down`` (E_pad, f, d)
 instead (models/moe.py).  The VLM family is the same tree: its vision
-tower is a stub of precomputed patch embeddings.  models/encdec.py and
-models/rglru.py give their own trees.
+tower is a stub of precomputed patch embeddings.  models/encdec.py,
+models/rglru.py and models/rwkv6.py give their own trees.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ __all__ = ["param_shapes", "init_params", "cast_params", "count_params",
 
 def param_shapes(cfg) -> dict:
     """The family's parameter tree of (shape, init[, std]) leaves;
-    NotImplementedError for an unported family."""
+    NotImplementedError for an unknown family."""
     return get_model_def(cfg).shapes(cfg)
 
 

@@ -34,7 +34,7 @@ from repro.kernels.bacam_topk import bacam_topk_stage1 as j_bacam_topk
 from repro.kernels import ops as j_ops
 from repro.kernels import ref as j_ref
 
-from repro_torch.core import attention as t_attn
+from repro_torch import core as t_attn  # attention and its spec, mask
 from repro_torch.core.bacam import pack_bits
 from repro_torch.kernels import bacam_mvm as t_mvm
 from repro_torch.kernels import bacam_topk as t_btk
@@ -353,12 +353,39 @@ def test_attention_masks_and_reference_helpers():
                                atol=1e-5)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(monkeypatch):
+    """The device-model options (once unported, raising) now follow the
+    reference: at d = 32 both packages refuse a 64-bit tile with the
+    same ValueError; at d = 64 the ADC and keyed noise give the
+    reference's outputs (1e-5) and never reach the kernel, even with
+    ``use_kernel``."""
+    def no_kernel(*a, **kw):
+        raise AssertionError("the device model reached the kernel")
+
+    monkeypatch.setattr(t_ops, "bacam_scores", no_kernel)
+    specs = (dict(mode="camformer", adc_bits=6, k_top=4, group_size=4),
+             dict(mode="binary", noise_sigma=0.01))
+    key = np.array([0, 7], np.uint32)
     q = torch.zeros((1, 2, 4, 32))
-    for spec in (t_attn.AttentionSpec(mode="camformer", adc_bits=6),
-                 t_attn.AttentionSpec(mode="binary", noise_sigma=0.01)):
-        with pytest.raises(NotImplementedError):
-            t_attn.attention(q, q, q, spec)
+    for kw in specs:
+        with pytest.raises(ValueError, match="must tile by cam_w=64"):
+            t_attn.attention(q, q, q, t_attn.AttentionSpec(**kw),
+                             rng=torch.from_numpy(key.astype(np.int64)))
+        with pytest.raises(ValueError, match="must tile by cam_w=64"):
+            j_attention(*(jnp.zeros((1, 2, 4, 32)),) * 3, JSpec(**kw),
+                        rng=jnp.asarray(key))
+    rng = np.random.default_rng(11)
+    q, k, v = (rng.standard_normal((1, 2, 8, 64)).astype(np.float32)
+               for _ in range(3))
+    for kw in specs:
+        got = t_attn.attention(
+            *(torch.from_numpy(x) for x in (q, k, v)),
+            t_attn.AttentionSpec(use_kernel=True, **kw),
+            rng=torch.from_numpy(key.astype(np.int64)))
+        want = j_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                           JSpec(**kw), rng=jnp.asarray(key))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
     # trainable binarization is ported (core/binarize.sign_ste): same
     # forward as the hard sign
     q = torch.randn((1, 2, 4, 32), generator=torch.Generator().manual_seed(0))

@@ -930,3 +930,110 @@ def test_gateway_sse_equals_in_process_stream_on_card(cuda, backend):
         assert (cam, flash - chunks) == (0, eng.ticks * n)
         assert chunks == eng.prefill_ticks * n
     eng.kv.check()
+
+
+# --- the ssm family and the BA-CAM device model --------------------------------
+
+def test_rwkv6_on_card_equals_cpu(cuda):
+    """``rwkv6-3b`` at f32 smoke width (2 layers, two heads of 64): prefill
+    of 12 tokens and 8 greedy steps on the card against the CPU, both fed
+    the CPU's picks: logits and the carried state (shifts, WKV) within
+    1e-4, picks equal; one train step's loss 1e-5 and gradients 1e-4; no
+    kernel launched."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                          make_value_and_grad)
+    from repro_torch.models import (cast_params, get_model_def, init_params,
+                                    init_pools)
+    from repro_torch.models.module import tree_leaves
+
+    cfg = smoke_config("rwkv6-3b", d_model=128, remat="full")
+    md = get_model_def(cfg)
+    params = init_params(cfg, device="cpu", seed=0)
+    gen = torch.Generator().manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab, (2, 12), generator=gen)
+    before = bmvm.launches + btk.launches
+    runs = {}
+    for dev in ("cpu", cuda):
+        p = cast_params(params, torch.float32, dev)
+        caches = init_pools(md.cache_specs(cfg, 2, 0), dev)
+        lg, caches = make_prefill_step(md, cfg)(p, {"tokens": tokens.to(dev)},
+                                                caches)
+        rows = [lg.cpu()]
+        for step in range(8):
+            tok = (rows if dev == "cpu" else runs["cpu"][0])[step].argmax(-1)
+            zero = torch.zeros(2, dtype=torch.int32, device=dev)
+            lg, caches = make_serve_step(md, cfg)(p, tok.to(dev), zero, zero,
+                                                  caches)
+            rows.append(lg.cpu())
+        runs["cpu" if dev == "cpu" else "cuda"] = (
+            rows, {k: v.cpu() for k, v in caches.items()})
+    for a, b in zip(runs["cuda"][0], runs["cpu"][0]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
+    for name, t in runs["cuda"][1].items():
+        torch.testing.assert_close(t, runs["cpu"][1][name], rtol=1e-4,
+                                   atol=1e-4)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16), generator=gen),
+             "labels": torch.randint(0, cfg.vocab, (2, 16), generator=gen)}
+    want_l, _, want_g = make_value_and_grad(md, cfg)(params, batch)
+    got_l, _, got_g = make_value_and_grad(md, cfg)(
+        cast_params(params, torch.float32, cuda),
+        {k: v.to(cuda) for k, v in batch.items()})
+    torch.testing.assert_close(got_l.cpu(), want_l, rtol=1e-5, atol=1e-5)
+    for a, b in zip(tree_leaves(got_g), tree_leaves(want_g)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    assert bmvm.launches + btk.launches == before
+
+
+def test_device_model_on_card_equals_cpu(cuda):
+    """The device model's randomness and scores on the card against the
+    CPU: threefry bits identical; normals within 4 ulp (``log1p`` is the
+    card's or the C library's, each within an ulp or two of the true
+    value, the rest identical: tests/test_torch_bacam_device.py); 6-bit
+    ADC scores with 1.4% noise equal away from the ADC's rounding
+    boundaries; 7-bit scores at d 256 equal to the exact integer path;
+    camformer attention with ``rng`` within 1e-4, never reaching the
+    kernel even with ``use_kernel``."""
+    from repro_torch.core import AttentionSpec, attention
+    from repro_torch.core import bacam
+    from repro_torch.serving import prng
+
+    key = torch.tensor([0, 42], dtype=torch.int64)
+    n = 1 << 20
+    assert torch.equal(prng.random_bits(key.to(cuda), n).cpu(),
+                       prng.random_bits(key, n))
+    a = prng.normal(key, (n,), scale=0.896).numpy()
+    b = prng.normal(key.to(cuda), (n,), scale=0.896).cpu().numpy()
+    ulp = np.abs(a.view(np.int32).astype(np.int64)
+                 - b.view(np.int32).astype(np.int64))
+    assert ulp.max() <= 4, ulp.max()
+    rng = np.random.default_rng(7)
+    pm1 = lambda *s: torch.from_numpy(np.where(  # noqa: E731
+        rng.standard_normal(s) > 0, 1.0, -1.0).astype(np.float32))
+    qb, kb = pm1(2, 4, 32, 64), pm1(2, 4, 256, 64)
+    want = bacam.bacam_scores(qb, kb, exact=False, adc_bits=6,
+                              noise_sigma=0.014, rng=key)
+    got = bacam.bacam_scores(qb.to(cuda), kb.to(cuda), exact=False,
+                             adc_bits=6, noise_sigma=0.014,
+                             rng=key.to(cuda)).cpu()
+    m = (bacam.binary_scores_exact(qb, kb)[..., None] + 64) * 0.5 + \
+        prng.normal(key, (2, 4, 32, 256, 1), scale=0.896)
+    t = m.clamp(0, 64).double() * 63 / 64
+    near = ((t - t.floor() - 0.5).abs() * 64 / 63 < 1e-5)[..., 0]
+    assert torch.equal(got[~near], want[~near])
+    qb, kb = pm1(2, 8, 256), pm1(2, 40, 256)
+    got = bacam.bacam_scores(qb.to(cuda), kb.to(cuda), exact=False,
+                             adc_bits=7)
+    assert torch.equal(got.cpu(), bacam.bacam_scores(qb, kb).float())
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 4, 64, 64)).astype(
+        np.float32)) for _ in range(3))
+    spec = AttentionSpec(mode="camformer", k_top=8, group_size=4,
+                         adc_bits=6, noise_sigma=0.014)
+    want = attention(q, k, v, spec, rng=key)
+    before = bmvm.launches
+    got = attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                    spec.replace(use_kernel=True), rng=key.to(cuda))
+    torch.cuda.synchronize()
+    assert bmvm.launches == before
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` nor
-``chip_smoke.py`` imports JAX or the reference package, nothing is built
+"""The port stands alone: no module of ``src/repro_torch``, no example
+of the port (``examples/torch_*.py``) nor ``chip_smoke.py`` imports JAX
+or the reference package, nothing is built
 when the port is imported, and the entry points run on the card unless
 the caller asks for the CPU."""
 
@@ -16,8 +17,8 @@ import repro_torch
 from repro_torch.configs import smoke_config
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path):

@@ -68,8 +68,8 @@ def test_moe_spec_stream_equals_plain_decode_without_drops():
 
 
 @pytest.mark.parametrize("arch,family,error,match", [
-    ("rwkv6-3b", "ssm", NotImplementedError, "is not ported"),
     # ported, but with no paged interface, as in the reference
+    ("rwkv6-3b", "ssm", ValueError, "paged serving interface"),
     ("recurrentgemma-2b", "hybrid", ValueError, "paged serving interface"),
     ("whisper-medium", "audio", ValueError, "paged serving interface")])
 def test_engine_refuses_unported_families(arch, family, error, match):
