@@ -115,7 +115,21 @@ Phases, in order (each raises on failure; nothing is caught):
      the exact integer path; the top-32 recall of the noisy 6-bit scores
      against the exact ones printed (a reading, not a gate); then
      ``examples/torch_quickstart.py`` runs on the card in a subprocess
-     and must exit 0.
+     and must exit 0;
+ 12. distribution at a world of one: a real NCCL process group of one
+     process (a file rendezvous under ``build/``) and its (1, 1)
+     ``("data", "model")`` mesh as the ambient mesh: (a)
+     ``camformer-bert`` at full width and depth through
+     ``Trainer(mesh=)`` (the sharded step: DTensor blocks, gathered
+     bf16 parameters, gradients reduced to blocks, the global norm) for
+     4 steps of phase 8's schedule and seeds, its losses within 1e-6
+     relative of phase 8's first 4, kernel 4 exactly 2 x 24 x 4 times,
+     no plain version on the card, step time and peak GB printed beside
+     phase 8's; (b) its step-4 checkpoint (written by process 0)
+     restored through ``rescale_state`` onto the mesh, ``verify_rescale``
+     true; (c) a B = 1 ``distributed_topk`` decode (512-token prompt, 8
+     steps) equal to the flag-off decode bit for bit; the group is
+     destroyed and the NCCL version printed.
 
 Phase 3 also holds kernels 1, 2 (dense and binary) and 2b at granite's
 GQA width (8 kv heads, G = 3), and kernel 4 at the train step's shape
@@ -991,7 +1005,7 @@ def moe_parity_phase():
     cfg = get_config("granite-moe-3b-a800m", dtype="float32")
     gen = torch.Generator().manual_seed(SEED + 4)
     params = {name: torch.randn(shape, generator=gen) * shape[-2]**-0.5
-              for name, (shape, _) in M.moe_shapes(cfg).items()}
+              for name, (shape, *_) in M.moe_shapes(cfg).items()}
     on_card = {k: v.cuda() for k, v in params.items()}
     errs = {}
     for b, s in ((8, 1), (8, 64)):
@@ -1586,6 +1600,7 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 1024, 12, 6
 TRAIN_SHAPE = "train_8x1024"
 MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 6
 TRAIN_ROW = "bacam_mvm (train)"
+TRAIN_LINES = {}  # phase 8's full-width runs by backend, read by phase 12
 
 
 def train_kernel_phase(flush):
@@ -1617,7 +1632,8 @@ def train_kernel_phase(flush):
     row = dict(
         name=TRAIN_ROW, route="cuda",
         path="train: camformer-bert camformer use_kernel (forward and "
-             "recompute, every layer); HAD student (binary, camformer)",
+             "recompute, every layer; phase 12 through the sharded step); "
+             "HAD student (binary, camformer)",
         source="src/repro_torch/csrc/bacam_mvm.cu",
         replaces="src/repro/kernels/bacam_mvm.py:62", max_abs_err=0.0,
         ms=cuda_ms(lambda: bmvm.bacam_mvm(q, k, d=d), flush=flush),
@@ -1840,6 +1856,7 @@ def train_phase():
             del state
             torch.cuda.empty_cache()
             lines[backend] = line
+            TRAIN_LINES[backend] = line
             log(f"train camformer-bert {backend}"
                 f"{' use_kernel' if cfg.use_kernel else ''} bf16 full width: "
                 + json.dumps(line))
@@ -2938,6 +2955,178 @@ def ssm_device_phase():
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 12: distribution at a world of one
+
+DIST_STEPS = 4  # phase 8's first steps, retraced through the sharded step
+DIST_DECODE_PROMPT, DIST_DECODE_STEPS = 512, 8
+
+
+@contextlib.contextmanager
+def nccl_world_of_one():
+    """A real NCCL process group of one process (a file rendezvous under
+    the checkout's ``build/``, no TCP port) and its (1, 1) ``("data",
+    "model")`` mesh, installed as the ambient mesh; destroyed on exit."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import (init_distributed, make_mesh_for,
+                                         set_mesh)
+
+    store = ROOT / "build" / "nccl_rendezvous"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)  # a stale store would hold old keys
+    init_distributed("cuda", init_method=f"file://{store}", rank=0,
+                     world_size=1)
+    try:
+        mesh = make_mesh_for(1, 1)
+        set_mesh(mesh)
+        yield mesh
+    finally:
+        set_mesh(None)
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
+def sharded_train_phase(mesh, smi):
+    """Phase 12 (a) and (b): camformer-bert at full width and depth
+    through ``Trainer(mesh=)`` (the sharded step: DTensor blocks, rows
+    over the batch axes, gradients reduced and clipped by the global norm)
+    for DIST_STEPS steps of phase 8's schedule and seeds: its losses
+    within 1e-6 relative of phase 8's first DIST_STEPS, kernel 4 exactly
+    2 x 24 x DIST_STEPS times, no plain version on the card; then its
+    checkpoint (written at step DIST_STEPS by process 0) restored through
+    ``rescale_state`` onto the mesh, ``verify_rescale`` true."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.elastic import rescale_state, verify_rescale
+    from repro_torch.models import get_model_def
+    from repro_torch.train.data import SyntheticLMData
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("camformer-bert", attn_backend="camformer",
+                     use_kernel=True)
+    md = get_model_def(cfg)
+    ckpt = ROOT / "build" / "dist_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        data = SyntheticLMData(cfg, TRAIN_SHAPE, seed=SEED, device="cuda",
+                               mesh=mesh)
+        tcfg = TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=DIST_STEPS,
+                             ckpt_dir=str(ckpt), keep=1, log_every=1,
+                             warmup=2, seed=SEED)
+        trainer = Trainer(md, cfg, data, tcfg, device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with plain_calls_on_card() as plain:
+            reset_launches()
+            t0 = time.perf_counter()
+            state = trainer.run(until=DIST_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        assert plain == {}, f"sharded train: plain on the card {plain}"
+        assert launches["bacam_mvm"] == 2 * cfg.n_layers * DIST_STEPS, \
+            launches
+        assert only_bacam_mvm(launches), launches
+        losses = [r["loss"] for r in trainer.metrics_log]
+        ref = TRAIN_LINES["camformer"]
+        want = ref["losses"][:DIST_STEPS]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+        assert len(losses) == DIST_STEPS and max(rel) <= 1e-6, \
+            (losses, want)
+        t1 = time.perf_counter()
+        restored, at = rescale_state(str(ckpt), md, cfg, mesh)
+        same = verify_rescale(state, restored)
+        assert at == DIST_STEPS and same, (at, same)
+        rescale_s = time.perf_counter() - t1
+        del state, restored
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    step_s = statistics.median(r["step_time_s"] for r in trainer.metrics_log)
+    line = dict(card=smi, steps=DIST_STEPS, losses=losses,
+                phase8_losses=want, max_rel_loss_diff=max(rel),
+                median_step_s=step_s,
+                phase8_median_step_s=ref["median_step_s"],
+                step_ratio=step_s / ref["median_step_s"], wall_s=wall,
+                peak_mem_gb=peak, phase8_peak_mem_gb=ref["peak_mem_gb"],
+                kernel4_launches=launches["bacam_mvm"],
+                rescale=dict(step=at, bit_identical=same,
+                             save_restore_verify_s=rescale_s))
+    log("phase 12 sharded train camformer-bert camformer use_kernel bf16 "
+        f"full width, NCCL world of one, mesh (1, 1): {json.dumps(line)}")
+    return {TRAIN_ROW: launches["bacam_mvm"]}
+
+
+def distributed_decode_phase(mesh):
+    """Phase 12 (c): a B = 1 camformer decode of full-width camformer-bert
+    with ``distributed_topk`` under the group and the ambient mesh
+    (``use_kernel``; a prompt of DIST_DECODE_PROMPT tokens, then
+    DIST_DECODE_STEPS greedy steps) equals the flag-off decode bit for
+    bit: at a world of one no axis shards the cache, and the search is
+    the local one.  Returns the launches of both runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import (cast_params, get_model_def, init_params,
+                                    init_pools)
+
+    base = get_config("camformer-bert", attn_backend="camformer",
+                      use_kernel=True)
+    params = cast_params(init_params(base, device="cuda", seed=SEED),
+                         torch.bfloat16)
+    rng = np.random.default_rng(SEED + 12)
+    prompt = torch.from_numpy(rng.integers(
+        0, base.vocab, (1, DIST_DECODE_PROMPT)).astype(np.int32)).cuda()
+    cache_len = DIST_DECODE_PROMPT + DIST_DECODE_STEPS
+    logits, runs = {}, []
+    for flag in (True, False):
+        cfg = base.replace(distributed_topk=flag)
+        md = get_model_def(cfg)
+        caches = init_pools(md.cache_specs(cfg, 1, cache_len), "cuda")
+        prefill, serve = make_prefill_step(md, cfg), make_serve_step(md, cfg)
+        with plain_calls_on_card() as plain:
+            reset_launches()
+            out, caches = prefill(params, {"tokens": prompt}, caches)
+            seen = [out]
+            for t in range(DIST_DECODE_STEPS):
+                pos = torch.full((1,), DIST_DECODE_PROMPT + t,
+                                 dtype=torch.int32, device="cuda")
+                tok = out.argmax(-1).to(torch.int32)
+                out, caches = serve(params, tok, pos, pos + 1, caches)
+                seen.append(out)
+            torch.cuda.synchronize()
+            runs.append(read_launches())
+        assert plain == {}, plain
+        logits[flag] = torch.stack(seen).cpu()
+    assert torch.isfinite(logits[True]).all()
+    assert torch.equal(logits[True], logits[False]), \
+        "distributed_topk decode differs from the flag-off decode"
+    assert runs[0] == runs[1], runs
+    log(f"phase 12 distributed_topk decode camformer-bert B = 1 "
+        f"({DIST_DECODE_PROMPT} + {DIST_DECODE_STEPS} steps): equal to the "
+        f"flag-off decode bit for bit; launches {json.dumps(runs[0])}")
+    return runs
+
+
+def distribution_phase(smi):
+    """Phase 12: a world-one NCCL group, the sharded train step with
+    elastic restore, and the distributed CAM search under it."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    with nccl_world_of_one() as mesh:
+        backend = dist.get_backend()
+        runs = [sharded_train_phase(mesh, smi)]
+        distributed_decode_phase(mesh)  # its launches: logged, not rows
+    nccl = ".".join(map(str, torch.cuda.nccl.version()))
+    log(f"phase 12: backend {backend}, NCCL {nccl}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert backend == "nccl", backend
+    return runs
+
+
 def kernel_instance(mangled):
     """``name<N, ...>`` of a mangled ``..._kernel<N, ...>`` (Itanium: a name
     is its length, then its characters; int and bool template arguments
@@ -3065,6 +3254,8 @@ def main():
     runs += ssm_device_phase()
     log(f"elapsed {time.perf_counter() - t0:.1f}s: ssm family and device "
         f"model")
+    runs += distribution_phase(smi_line)
+    log(f"elapsed {time.perf_counter() - t0:.1f}s: distribution")
     for row in rows:  # launches over every path run
         row["launches"] = sum(run.get(row["name"], 0) for run in runs)
         if row["path"] != "none":

@@ -59,6 +59,7 @@ rows may write trash page 0 at once, so its contents are arbitrary.
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
@@ -488,17 +489,87 @@ class CamformerBackend(AttentionBackend):
         return out.reshape(b, h, sq, d).to(q.dtype)
 
     def _distributed_attend(self, q, cache, kv_len, positions, cfg):
-        """Distributed CAM search over a sequence-sharded cache.  With one
-        process (no ``torch.distributed`` group, or a world of one) no axis
-        shards the cache, and the search is the local one, as the
-        reference returns it when its mesh has no axis larger than 1."""
-        dist = torch.distributed
-        if (not dist.is_available() or not dist.is_initialized()
-                or dist.get_world_size() == 1):
+        """Distributed CAM search (paper Sec. IV-C at cluster scale).
+
+        The packed-binary cache is sequence-sharded over the ambient
+        mesh's axes of size > 1 among (``pod``, ``data``, ``model``), in
+        that order (``launch/mesh.set_mesh``): ``cache`` is the whole
+        sequence, as ``decode`` writes it (so ``write_cache`` and the
+        running ``k_scale`` see the global index), and each process
+        searches its slice of S / n_shards rows, at ``shard * S /
+        n_shards`` (``CACHE_RULES["kv_seq"]``).  Each process scores its
+        keys and runs the two-stage top-k locally, the processes exchange
+        only their k candidates (values and globalized indices,
+        all-gathered in shard order), the global top-k and its softmax
+        are computed
+        redundantly everywhere (ties to the first occurrence, as
+        ``lax.top_k``), and the contextualization is a partial sum over
+        the local V rows finished by one all-reduce.  Without a mesh, or
+        with no axis larger than 1 (a world of one), the search is the
+        local one, as the reference's.
+        """
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import get_mesh
+
+        mesh = get_mesh()
+        sizes = (dict(zip(mesh.mesh_dim_names, mesh.shape))
+                 if mesh is not None else {})
+        axes = tuple(a for a in ("pod", "data", "model")
+                     if sizes.get(a, 1) > 1)
+        if not axes:
             return self._cache_attend(q, cache, kv_len, positions, cfg)
-        raise NotImplementedError(
-            "distributed CAM search (cfg.distributed_topk over a "
-            "sequence-sharded cache) is not ported yet")
+        coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        groups = [mesh.get_group(a) for a in axes]
+        spec = self.spec(cfg)
+        b, h, sq, d = q.shape
+        hkv = cfg.n_kv_heads
+        g = h // hkv
+        skv = cache["v"].shape[2]
+        n_shards = math.prod(sizes[a] for a in axes)
+        if skv % n_shards:
+            raise ValueError(f"distributed_topk: a cache of {skv} rows does "
+                             f"not split over {n_shards} shards")
+        s_local = skv // n_shards
+        shard = 0
+        for a in axes:  # the shard's index, major-to-minor
+            shard = shard * sizes[a] + coord[a]
+        offset = shard * s_local
+        rows = slice(offset, offset + s_local)
+        kp_l, v_l = cache["k_packed"][:, :, rows], cache["v"][:, :, rows]
+        qf = q.to(torch.float32)
+        q_scale = had_scales(qf, keepdim=False)  # (B, H, Sq)
+        qp = bacam.pack_bits(sign_pm1(qf)).reshape(b, hkv, g * sq, d // 32)
+        kpos = offset + torch.arange(s_local, dtype=torch.int32,
+                                     device=q.device)
+        lv, li = _gather_topk(qp, kp_l,
+                              kv_len.reshape(b).to(torch.int32), positions,
+                              spec, d, g, cfg.window,
+                              kv_positions=kpos.expand(b, s_local))
+        li = li.to(torch.int32) + offset  # globalize
+        for grp in reversed(groups):  # innermost axis first: shard order
+            n = dist.get_world_size(grp)
+            parts_v = [torch.empty_like(lv) for _ in range(n)]
+            parts_i = [torch.empty_like(li) for _ in range(n)]
+            dist.all_gather(parts_v, lv.contiguous(), group=grp)
+            dist.all_gather(parts_i, li.contiguous(), group=grp)
+            lv, li = torch.cat(parts_v, dim=-1), torch.cat(parts_i, dim=-1)
+        top_v, sel = stable_topk(lv, spec.k_top)
+        top_i = torch.gather(li, -1, sel)
+        temp = (q_scale.reshape(b, hkv, g * sq)[..., None]
+                * cache["k_scale"][:, :, None, None])
+        w, valid = topk_softmax_weights(top_v, temp, 1.0 / (d**0.5))
+        mine = (top_i >= offset) & (top_i < offset + s_local) & valid
+        loc = torch.clamp(top_i - offset, 0, s_local - 1).long()
+        v_sel = v_l[torch.arange(b, device=q.device)[:, None, None, None],
+                    torch.arange(hkv, device=q.device)[None, :, None, None],
+                    loc]
+        out = torch.einsum("bhrk,bhrkd->bhrd",
+                           torch.where(mine, w, torch.zeros_like(w)),
+                           v_sel.to(torch.float32))
+        for grp in groups:
+            dist.all_reduce(out, group=grp)
+        return out.reshape(b, hkv, g, sq, d).reshape(b, h, sq, d).to(q.dtype)
 
     def page_spec(self, cfg, n_pages, page_size, max_batch, dtype):
         hkv, d = cfg.n_kv_heads, cfg.head_dim

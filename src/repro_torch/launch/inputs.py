@@ -2,8 +2,8 @@
 
 ``input_specs`` gives the train/prefill batch of a ``SHAPES`` entry and
 ``serve_input_specs`` the decode step's, each as {name: (shape, dtype)}
-with torch dtypes.  The reference also returns logical sharding axes;
-the port has no mesh, so it keeps the shapes only.  Modality frontends
+with torch dtypes; ``batch_axes`` gives their logical sharding axes (the
+reference returns both from one call).  Modality frontends
 are stubs, as in the reference: VLM cells get patch embeddings, audio
 cells precomputed frame embeddings.
 """
@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.configs.base import SHAPES
 
-__all__ = ["input_specs", "serve_input_specs"]
+__all__ = ["input_specs", "serve_input_specs", "batch_axes"]
 
 
 def input_specs(cfg, shape_name: str) -> dict:
@@ -41,3 +41,13 @@ def serve_input_specs(cfg, shape_name: str) -> dict:
     """Decode-step inputs: one new token against a seq_len cache."""
     b = SHAPES[shape_name]["global_batch"]
     return {name: ((b,), torch.int32) for name in ("tokens", "pos", "kv_len")}
+
+
+def batch_axes(cfg, shape_name: str, *, serve: bool = False) -> dict:
+    """{name: logical axes} of ``input_specs`` (or ``serve_input_specs``)."""
+    if serve:
+        return {name: ("batch",) for name in serve_input_specs(cfg,
+                                                               shape_name)}
+    return {name: ("batch", None, "embed") if len(shape) == 3
+            else ("batch", "seq")
+            for name, (shape, _) in input_specs(cfg, shape_name).items()}

@@ -13,21 +13,36 @@ parameters already in it) and calls the model's entry point; the batch
 goes through as given, so a VLM batch takes ``batch["image_embeds"]``
 (B, P, d) and an audio batch ``batch["audio_features"]`` (B, enc_len,
 d) beside ``batch["tokens"]``.
-The reference's sharding assembly (mesh specs of every argument) has no
-counterpart: the port runs on one device.
+
+The sharding assembly is the reference's: ``params_specs``,
+``state_specs``, ``batch_specs`` and ``cache_specs_trees`` give every
+argument's shapes and specs (``sharding/partitioning.py``) on a mesh, and
+``named`` turns specs into DTensor placements on a live mesh.  With
+``mesh=``, ``make_train_step`` is the sharded step (see its docstring),
+``init_state`` gives a state of DTensor blocks, and ``batch_row_axes``
+names the mesh axes a batch's rows are split over.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.models.module import (cast_params, init_params,
+from repro_torch.launch.inputs import batch_axes, input_specs, \
+    serve_input_specs
+from repro_torch.models.module import (cast_params, init_params, param_axes,
                                        tree_leaves, tree_map)
 from repro_torch.models.transformer import dtype_of
-from repro_torch.train.optimizer import adamw, cosine_schedule
+from repro_torch.sharding import partitioning as P
+from repro_torch.train.optimizer import (adamw, cosine_schedule,
+                                         sharded_global_norm)
 
 __all__ = ["METRIC_KEYS", "make_value_and_grad", "make_train_step",
-           "init_state", "make_prefill_step", "make_serve_step"]
+           "init_state", "make_prefill_step", "make_serve_step",
+           "params_specs", "state_specs", "batch_specs", "cache_specs_trees",
+           "cache_axes", "named", "batch_row_axes", "shard_tree",
+           "map_specs"]
 
 METRIC_KEYS = ("loss", "grad_norm", "lr", "ce", "tokens",
                "moe_aux_loss", "moe_drop_frac")
@@ -50,33 +65,32 @@ def make_value_and_grad(md, cfg):
 
 
 def make_train_step(md, cfg, *, peak_lr=3e-4, warmup=2000,
-                    total_steps=100_000, accum: int = 1):
+                    total_steps=100_000, accum: int = 1, mesh=None,
+                    row_axes=None):
     """Returns (train_step, optimizer).  state = {"params", "opt": {"m",
     "v", "step"}} with float32 masters (``init_state``); the step updates
     it in place and returns it with the metrics of ``METRIC_KEYS``
     (float32 0-d tensors; nothing is read back to the host).  With
     ``accum > 1`` the batch is cut along its rows into ``accum``
     microbatches whose gradients and losses are averaged (the other
-    metrics are then 0, as in the reference)."""
+    metrics are then 0, as in the reference).
+
+    With a live ``mesh`` the step is sharded (``_sharded_step``): the
+    state's params, m and v are DTensor blocks per ``PARAM_RULES``
+    (``init_state(..., mesh=)``), the batch is this process's rows, split
+    over the mesh axes ``row_axes`` (default ``batch_row_axes(mesh)``),
+    and the metrics are the global batch's."""
     opt = adamw(cosine_schedule(peak_lr, warmup, total_steps))
     value_and_grad = make_value_and_grad(md, cfg)
+    if mesh is not None:
+        if row_axes is None:
+            row_axes = batch_row_axes(mesh)
+        return _sharded_step(md, cfg, opt, value_and_grad, accum, mesh,
+                             tuple(row_axes)), opt
 
     def train_step(state, batch):
         params = state["params"]
-        if accum == 1:
-            loss, aux, grads = value_and_grad(params, batch)
-        else:  # microbatched gradient accumulation
-            gsum = tree_map(torch.zeros_like, params)
-            loss = 0.0
-            for i in range(accum):
-                mb = {k: v.reshape(accum, v.shape[0] // accum,
-                                   *v.shape[1:])[i]
-                      for k, v in batch.items()}
-                mb_loss, _, g = value_and_grad(params, mb)
-                torch._foreach_add_(tree_leaves(gsum), tree_leaves(g))
-                loss = loss + mb_loss
-            torch._foreach_div_(tree_leaves(gsum), float(accum))
-            grads, loss, aux = gsum, loss / accum, {}
+        loss, aux, grads = _accumulate(value_and_grad, params, batch, accum)
         params, opt_state, ostats = opt.update(grads, state["opt"], params)
         raw = {"loss": loss, **ostats, **aux}
         metrics = {k: torch.as_tensor(raw.get(k, 0.0), dtype=torch.float32)
@@ -86,11 +100,114 @@ def make_train_step(md, cfg, *, peak_lr=3e-4, warmup=2000,
     return train_step, opt
 
 
-def init_state(cfg, opt, *, seed: int = 0, device="cuda") -> dict:
+def _accumulate(value_and_grad, params, batch, accum):
+    """(loss, aux, grads) of the batch, or with ``accum > 1`` the means
+    over its ``accum`` row microbatches of the losses and the float32
+    gradients (aux then empty)."""
+    if accum == 1:
+        return value_and_grad(params, batch)
+    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+    loss = 0.0
+    for i in range(accum):
+        mb = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
+              for k, v in batch.items()}
+        mb_loss, _, g = value_and_grad(params, mb)
+        torch._foreach_add_(tree_leaves(gsum), tree_leaves(g))
+        loss = loss + mb_loss
+    torch._foreach_div_(tree_leaves(gsum), float(accum))
+    return loss / accum, {}, gsum
+
+
+def _sharded_step(md, cfg, opt, value_and_grad, accum, mesh, row_axes):
+    """The train step on ``mesh``, each process holding its blocks of the
+    state and its rows of the batch (split over ``row_axes``):
+
+      1. every parameter is cast to the compute type and gathered whole
+         (``DTensor.full_tensor``);
+      2. ``value_and_grad`` runs on this process's rows inside
+         ``sharded_batch``: its loss is this process's share of the
+         global batch's (sums over the local rows divided by global
+         counts, models/layers.py and models/moe.py), so the gradients
+         of the processes along ``row_axes`` sum to the global gradient;
+      3. each gradient is summed over ``row_axes`` only and this process
+         keeps its block (``Partial`` -> the parameter's placements: a
+         reduce-scatter where the block is split along a row axis, an
+         all-reduce where it is replicated along one, a local slice
+         along the others: processes along those computed the same
+         rows);
+      4. AdamW updates the local blocks in place, clipped by the global
+         norm (``sharded_global_norm``: each distinct block once);
+      5. the metrics are summed over ``row_axes``: the global batch's
+         (``tokens`` is already the global count).
+
+    Compute splits over the batch axes only: a ``model`` axis holds the
+    ``tp`` profile's storage layout, each process along it running the
+    same rows (the reference's GSPMD also splits the compute over it)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    dt = dtype_of(cfg)
+    names = tuple(mesh.mesh_dim_names)
+    partial = tuple(Partial() if a in row_axes else Replicate()
+                    for a in names)
+    coord = mesh.get_coordinate()
+
+    def counted(p):  # the first copy of a block replicated along a dim
+        return all(c == 0 for c, pl in zip(coord, p.placements)
+                   if pl.is_replicate())
+
+    def reduce_block(g, p):
+        g = DTensor.from_local(g.to(torch.float32), mesh, partial,
+                               run_check=False)
+        return g.redistribute(mesh, p.placements).to_local()
+
+    def train_step(state, batch):
+        params = state["params"]
+        with torch.no_grad():
+            full = tree_map(lambda p: p.to(dt).full_tensor(), params)
+        with P.sharded_batch(mesh, row_axes):
+            loss, aux, grads = _accumulate(value_and_grad, full, batch,
+                                           accum)
+            del full
+            grads = tree_map(reduce_block, grads, params)
+            raw = {"loss": loss, **aux}
+            keys = [k for k in ("loss", "ce", "moe_aux_loss",
+                                "moe_drop_frac") if k in raw]
+            sums = P.batch_sum(torch.stack(
+                [torch.as_tensor(raw[k], dtype=torch.float32,
+                                 device=loss.device) for k in keys]))
+        raw.update(zip(keys, sums.unbind()))
+        local = lambda tree: tree_map(lambda t: t.to_local(), tree)
+        norm = sharded_global_norm(grads, tree_map(counted, params))
+        _, opt_state, ostats = opt.update(
+            grads, {"m": local(state["opt"]["m"]),
+                    "v": local(state["opt"]["v"]),
+                    "step": state["opt"]["step"]}, local(params), norm=norm)
+        raw.update(ostats)
+        metrics = {k: torch.as_tensor(raw.get(k, 0.0), dtype=torch.float32)
+                   for k in METRIC_KEYS}
+        return {"params": params,
+                "opt": dict(state["opt"], step=opt_state["step"])}, metrics
+
+    return train_step
+
+
+def init_state(cfg, opt, *, seed: int = 0, device="cuda", mesh=None) -> dict:
     """A fresh train state: seeded float32 masters (``init_params``) and
-    the optimizer's zeros."""
+    the optimizer's zeros.  With a live ``mesh``, params, m and v are
+    DTensors holding this process's blocks (``state_specs``); every
+    process draws the same masters and keeps its block."""
     params = init_params(cfg, device=device, seed=seed)
-    return {"params": params, "opt": opt.init(params)}
+    if mesh is None:
+        return {"params": params, "opt": opt.init(params)}
+    from repro_torch.models import get_model_def
+
+    plc = named(mesh, params_specs(get_model_def(cfg), cfg, mesh)[1])
+    params = shard_tree(params, mesh, plc)
+    zeros = lambda: tree_map(torch.zeros_like, params)
+    return {"params": params, "opt": {"m": zeros(), "v": zeros(),
+                                      "step": torch.zeros(
+                                          (), dtype=torch.int32)}}
 
 
 def make_prefill_step(md, cfg):
@@ -110,3 +227,108 @@ def make_serve_step(md, cfg):
                          caches, cfg)
 
     return serve_step
+
+
+# ---------------- sharding assembly ----------------
+
+def map_specs(fn, tree, *rest):
+    """``fn`` over the leaves of a dict/list tree (and the matching
+    leaves of ``rest``), whose leaves may be tuples (shapes, specs,
+    placements), which ``tree_map`` would walk into."""
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_specs(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def params_specs(md, cfg, mesh, *, serve: bool = False):
+    """(shape tree, spec tree) of the parameters on ``mesh``: the float32
+    masters under ``PARAM_RULES``, or with ``serve`` the served weights
+    under ``SERVE_PARAM_RULES``."""
+    shapes = map_specs(lambda leaf: tuple(leaf[0]), md.shapes(cfg))
+    rules = P.SERVE_PARAM_RULES if serve else P.PARAM_RULES
+    return shapes, P.tree_pspecs(param_axes(cfg), shapes, mesh, rules)
+
+
+def state_specs(md, cfg, mesh):
+    """(shape tree, spec tree) of the full train state: params, m and v
+    share the parameters' specs, ``step`` is a replicated scalar."""
+    shapes, pspecs = params_specs(md, cfg, mesh)
+    return ({"params": shapes, "opt": {"m": shapes, "v": shapes,
+                                       "step": ()}},
+            {"params": pspecs, "opt": {"m": pspecs, "v": pspecs,
+                                       "step": ()}})
+
+
+def batch_specs(cfg, shape_name, mesh, *, serve=False):
+    """({name: (shape, dtype)}, {name: spec}) of a batch under
+    ``ACT_RULES``."""
+    specs = (serve_input_specs if serve else input_specs)(cfg, shape_name)
+    axes = batch_axes(cfg, shape_name, serve=serve)
+    return specs, {k: P.resolve_spec(axes[k], specs[k][0], mesh, P.ACT_RULES)
+                   for k in specs}
+
+
+# logical axes of each contiguous-cache leaf (the reference's
+# ``cache_specs``; the port keeps a per-layer list where the reference
+# stacks along a leading ``layers`` axis, RWKV-6's state excepted)
+_CACHE_AXES = {
+    "k": ("batch", "kv_heads", "kv_seq", "head_dim"),
+    "v": ("batch", "kv_heads", "kv_seq", "head_dim"),
+    "k_packed": ("batch", "kv_heads", "kv_seq", None),
+    "k_scale": ("batch", "kv_heads"),
+    "conv": ("batch", "conv", "rnn"),
+    "h": ("batch", "rnn"),
+    "attn_pos": ("batch", "kv_seq"),
+    "memory": ("batch", "kv_seq", "embed"),
+    "tm_prev": ("layers", "batch", "embed"),
+    "cm_prev": ("layers", "batch", "embed"),
+    "wkv": ("layers", "batch", "heads", None, None),
+}
+
+
+def cache_axes(tree):
+    """The logical-axes tree of a cache-spec tree (``md.cache_specs``)."""
+    if isinstance(tree, list):
+        return [cache_axes(v) for v in tree]
+    return {k: cache_axes(v) if isinstance(v, (dict, list))
+            else _CACHE_AXES[k] for k, v in tree.items()}
+
+
+def cache_specs_trees(md, cfg, batch: int, cache_len: int, mesh):
+    """(cache-spec tree of (shape, dtype), spec tree) under
+    ``CACHE_RULES``."""
+    tree = md.cache_specs(cfg, batch, cache_len)
+    shapes = map_specs(lambda leaf: tuple(leaf[0]), tree)
+    return tree, P.tree_pspecs(cache_axes(tree), shapes, mesh, P.CACHE_RULES)
+
+
+def named(mesh, specs):
+    """A spec tree -> the tree of its DTensor placements on ``mesh``."""
+    return map_specs(lambda spec: P.placements(spec, mesh), specs)
+
+
+def batch_row_axes(mesh, global_batch: int | None = None) -> tuple:
+    """The mesh axes a batch of ``global_batch`` rows is split over
+    (``ACT_RULES["batch"]``); by default those of a batch that every axis
+    divides."""
+    rows = global_batch or math.prod(P.axis_sizes(mesh).values())
+    entry = P.resolve_spec(("batch",), (rows,), mesh, P.ACT_RULES)[0]
+    return () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def shard_tree(tree, mesh, plc):
+    """Whole tensors (the same on every process) -> DTensors of this
+    process's blocks, sliced locally (no communication)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.train.checkpoint import local_block
+
+    return map_specs(lambda t, p: DTensor.from_local(
+        local_block(t, mesh, p).clone(), mesh, p, run_check=False),
+        tree, plc)
+

@@ -18,13 +18,16 @@ def _resolve_backend(cfg, backend=None) -> AttentionBackend:
 
 
 def attn_shapes(cfg) -> dict:
-    """{leaf: (shape, init)} of one attention sub-block's projections."""
+    """{leaf: (shape, init, axes)} of one attention sub-block's
+    projections."""
     d, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
-    s = {"wq": ((d, q), "normal"), "wk": ((d, kv), "normal"),
-         "wv": ((d, kv), "normal"), "wo": ((q, d), "normal")}
+    s = {"wq": ((d, q), "normal", ("embed", "heads")),
+         "wk": ((d, kv), "normal", ("embed", "kv_heads")),
+         "wv": ((d, kv), "normal", ("embed", "kv_heads")),
+         "wo": ((q, d), "normal", ("heads", "embed"))}
     if cfg.qkv_bias:
-        s.update(bq=((q,), "zeros"), bk=((kv,), "zeros"),
-                 bv=((kv,), "zeros"))
+        s.update(bq=((q,), "zeros", (None,)), bk=((kv,), "zeros", (None,)),
+                 bv=((kv,), "zeros", (None,)))
     return s
 
 

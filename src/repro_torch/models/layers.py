@@ -9,17 +9,19 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import partitioning as P
+
 __all__ = ["norm_shapes", "apply_norm", "rope", "sinusoidal_positions",
            "gelu", "mlp_shapes", "apply_mlp", "embed_lookup", "head_matrix",
            "chunked_cross_entropy"]
 
 
 def norm_shapes(cfg) -> dict:
-    """{leaf: (shape, init)} of a norm: a scale, and a bias for layer
-    norm."""
-    s = {"scale": ((cfg.d_model,), "ones")}
+    """{leaf: (shape, init, axes)} of a norm: a scale, and a bias for
+    layer norm."""
+    s = {"scale": ((cfg.d_model,), "ones", (None,))}
     if cfg.norm == "layer":
-        s["bias"] = ((cfg.d_model,), "zeros")
+        s["bias"] = ((cfg.d_model,), "zeros", (None,))
     return s
 
 
@@ -77,14 +79,17 @@ def gelu(x):
 
 
 def mlp_shapes(cfg) -> dict:
-    """{leaf: (shape, init)} of the MLP: gated for ``silu`` / ``geglu``,
-    the plain biased 2-layer MLP (whisper) otherwise."""
+    """{leaf: (shape, init, axes)} of the MLP: gated for ``silu`` /
+    ``geglu``, the plain biased 2-layer MLP (whisper) otherwise."""
     d, f = cfg.d_model, cfg.d_ff
     if cfg.act in ("silu", "geglu"):
-        return {"w_gate": ((d, f), "normal"), "w_up": ((d, f), "normal"),
-                "w_down": ((f, d), "normal")}
-    return {"w_in": ((d, f), "normal"), "b_in": ((f,), "zeros"),
-            "w_out": ((f, d), "normal"), "b_out": ((d,), "zeros")}
+        return {"w_gate": ((d, f), "normal", ("embed", "mlp")),
+                "w_up": ((d, f), "normal", ("embed", "mlp")),
+                "w_down": ((f, d), "normal", ("mlp", "embed"))}
+    return {"w_in": ((d, f), "normal", ("embed", "mlp")),
+            "b_in": ((f,), "zeros", (None,)),
+            "w_out": ((f, d), "normal", ("mlp", "embed")),
+            "b_out": ((d,), "zeros", (None,))}
 
 
 def apply_mlp(p, x, cfg):
@@ -123,6 +128,11 @@ def chunked_cross_entropy(x, embed_params, labels, cfg, *, loss_mask=None,
     and the loss adds ``z_loss * logsumexp**2``.  Returns (loss, {"ce",
     "tokens"}): loss and ce are sums over the masked positions divided by
     their count (at least 1).
+
+    Inside ``sharding.partitioning.sharded_batch`` x holds this process's
+    rows of a sharded batch: the count (and ``tokens``) is then the
+    global batch's (summed over the batch axes), so that loss and ce
+    summed over the batch axes are the global batch's.
     """
     b, s, _ = x.shape
     head = head_matrix(embed_params, cfg, x.dtype)
@@ -150,5 +160,5 @@ def chunked_cross_entropy(x, embed_params, labels, cfg, *, loss_mask=None,
         tot = tot + (ce + (z_loss * lse**2 * mc).sum())
         ce_tot = ce_tot + ce
         cnt = cnt + mc.sum()
-    cnt = torch.clamp(cnt, min=1.0)
+    cnt = torch.clamp(P.batch_sum(cnt), min=1.0)
     return tot / cnt, {"ce": ce_tot / cnt, "tokens": cnt}

@@ -2,13 +2,16 @@
 helpers.
 
 Each family's ``ModelDef.shapes(cfg)`` gives its parameter tree with
-``(shape, init[, std])`` leaves, mirroring the reference's ``specs``
-leaf for leaf, with one difference of layout: the reference stacks
-repeated blocks along a leading ``layers`` axis for ``lax.scan``, while
-the port keeps each stack (``blocks``, also RWKV-6's; ``enc_blocks`` /
-``dec_blocks`` of the encoder-decoder; ``rec1`` / ``rec2`` / ``attn`` of
-the Griffin hybrid) as a list of per-layer dicts, its layer loop being a
-Python loop.  Matrices keep the (in, out) layout and are applied as ``x @ W``.
+``(shape, init, axes[, std])`` leaves, mirroring the reference's
+``specs`` (``Param(shape, axes, init, scale)``) leaf for leaf: ``axes``
+are the leaf's logical sharding axes (sharding/partitioning.py resolves
+them), declared beside its shape in the family's file.  One difference
+of layout: the reference stacks repeated blocks along a leading
+``layers`` axis for ``lax.scan``, while the port keeps each stack
+(``blocks``, also RWKV-6's; ``enc_blocks`` / ``dec_blocks`` of the
+encoder-decoder; ``rec1`` / ``rec2`` / ``attn`` of the Griffin hybrid)
+as a list of per-layer dicts, its layer loop being a Python loop.
+Matrices keep the (in, out) layout and are applied as ``x @ W``.
 The decoder-only LM (dense, MoE and VLM families):
 
     {"embed": {"tok": (V_pad, d), "head": (d, V_pad)},
@@ -31,14 +34,37 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models.registry import get_model_def
 
-__all__ = ["param_shapes", "init_params", "cast_params", "count_params",
-           "tree_leaves", "tree_map"]
+__all__ = ["param_shapes", "param_axes", "init_params", "cast_params",
+           "count_params", "tree_leaves", "tree_map"]
 
 
 def param_shapes(cfg) -> dict:
-    """The family's parameter tree of (shape, init[, std]) leaves;
+    """The family's parameter tree of (shape, init, axes[, std]) leaves;
     NotImplementedError for an unknown family."""
     return get_model_def(cfg).shapes(cfg)
+
+
+def param_axes(cfg) -> dict:
+    """The family's tree of logical-axes tuples, one per parameter leaf,
+    in the structure of ``param_shapes`` (each leaf's ``axes``); a layer
+    of a ``blocks`` list has the reference's stacked axes without the
+    leading ``layers``."""
+    return _map_leaves(_axes_of, param_shapes(cfg))
+
+
+def _axes_of(leaf):
+    shape, _, axes, *_ = leaf
+    if len(axes) != len(shape):
+        raise ValueError(f"axes {axes} don't match shape {shape}")
+    return axes
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_leaves(fn, v) for v in tree]
+    return fn(tree)
 
 
 def _leaf(shape, init, gen, device, std=None):
@@ -58,7 +84,8 @@ def _draw(tree, gen, device):
         return {k: _draw(v, gen, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_draw(v, gen, device) for v in tree]
-    shape, init, *std = tree
+    shape, init, _, *std = tree
+    _axes_of(tree)
     return _leaf(shape, init, gen, device, *std)
 
 

@@ -27,6 +27,18 @@ Every tensor has a static shape (no host read, no boolean indexing), so
 one forward's launches do not depend on the routing.  Padding tokens
 (inactive slots, right-padded prompt rows) route and take capacity like
 any other token, as in the reference.
+
+Inside ``sharding.partitioning.sharded_batch`` (the sharded train step)
+x is this process's rows of the global batch.  Its dispatch groups are
+the global batch's only when it holds a multiple of ``MOE_GROUP``
+tokens (else ``group_size`` raises).  The load-balancing loss of the
+global batch, ``e * sum(density * mean prob)``, is not a mean of
+per-process products: the slot-0 expert counts (and with them the token
+count) are summed over the batch axes, and each process returns ``e *
+sum(density * its prob sums) / tokens``, whose sum over the batch axes
+is the global loss (and whose gradient is this process's share of it);
+the drop share is returned the same way.  Unsharded, the sums are the
+batch's own and the formula is the reference's.
 """
 
 from __future__ import annotations
@@ -36,6 +48,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import partitioning as P
+
 __all__ = ["MOE_GROUP", "Routing", "moe_shapes", "group_size", "capacity",
            "route", "apply_moe"]
 
@@ -43,17 +57,27 @@ MOE_GROUP = 64  # tokens per dispatch group
 
 
 def moe_shapes(cfg) -> dict:
-    """{leaf: (shape, init)} of the MoE FFN: the router (d, E_pad), whose
-    fan-in std d**-0.5 is the reference's explicit router scale, and the
-    expert stacks (E_pad, d, f) / (E_pad, f, d)."""
+    """{leaf: (shape, init, axes)} of the MoE FFN: the router (d, E_pad),
+    whose fan-in std d**-0.5 is the reference's explicit router scale,
+    and the expert stacks (E_pad, d, f) / (E_pad, f, d)."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.padded_experts
-    return {"router": ((d, e), "normal"), "w_gate": ((e, d, f), "normal"),
-            "w_up": ((e, d, f), "normal"), "w_down": ((e, f, d), "normal")}
+    return {"router": ((d, e), "normal", ("embed", "experts")),
+            "w_gate": ((e, d, f), "normal",
+                       ("experts", "embed", "expert_mlp")),
+            "w_up": ((e, d, f), "normal", ("experts", "embed", "expert_mlp")),
+            "w_down": ((e, f, d), "normal",
+                       ("experts", "expert_mlp", "embed"))}
 
 
 def group_size(n_tokens: int) -> int:
     """Tokens per dispatch group for a (B, S) batch of ``n_tokens``.
-    Raises where the reference asserts: B*S must be a multiple of it."""
+    Raises where the reference asserts: B*S must be a multiple of it;
+    inside ``sharded_batch``, B*S must be a multiple of ``MOE_GROUP``."""
+    if P.in_sharded_batch() and n_tokens % MOE_GROUP:
+        raise ValueError(
+            f"MoE dispatch under a sharded batch: this process holds "
+            f"{n_tokens} tokens, not a multiple of MOE_GROUP={MOE_GROUP}, "
+            f"so its dispatch groups would not be the global batch's")
     gt = min(MOE_GROUP, n_tokens)
     if gt < 1 or n_tokens % gt:
         raise ValueError(
@@ -113,12 +137,16 @@ def apply_moe(p, x, cfg):
     xg = x.reshape(g, gt, d)
     r = route(p["router"], xg, cfg, cap)
 
-    # Switch load-balancing loss: slot-0 density times the mean prob
-    density = F.one_hot(r.eidx[..., 0], ep).to(torch.float32).mean((0, 1))
-    aux_loss = e * torch.sum(density * r.probs.mean((0, 1)))
-    # per-slot drop share (each slot routes all t tokens), summed over k
+    # Switch load-balancing loss: slot-0 density times the mean prob,
+    # over the global batch (batch_sum: the identity unsharded); each
+    # token has one slot-0 choice, so n counts the batch's tokens
+    count0 = P.batch_sum(
+        F.one_hot(r.eidx[..., 0], ep).to(torch.float32).sum((0, 1)))
+    n = count0.sum()
+    aux_loss = e * torch.sum(count0 / n * r.probs.sum((0, 1))) / n
+    # per-slot drop share (each slot routes all tokens), over k
     kept = r.keep.sum((0, 1)).to(torch.float32)  # (k,)
-    drop = torch.sum(1.0 - kept / max(t, 1)) / k
+    drop = torch.sum(t - kept) / n / k
 
     # dispatch / combine (g, gt, E_pad, cap): each choice writes its
     # (expert, row) entry, 1 / its gate when kept and 0 when dropped (at

@@ -48,12 +48,17 @@ def _layout(cfg):
 def _rec_shapes(cfg) -> dict:
     d, r, w = cfg.d_model, cfg.rnn_width, cfg.conv_width
     return {"ln": L.norm_shapes(cfg),
-            "w_gate": ((d, r), "normal"), "w_x": ((d, r), "normal"),
-            "conv_w": ((w, r), "normal"), "conv_b": ((r,), "zeros"),
-            "w_rg": ((r, r), "normal", r**-0.5), "b_rg": ((r,), "zeros"),
-            "w_ig": ((r, r), "normal", r**-0.5), "b_ig": ((r,), "zeros"),
-            "lam": ((r,), "ones"),  # softplus(lam): the decay rates
-            "w_out": ((r, d), "normal"),
+            "w_gate": ((d, r), "normal", ("embed", "rnn")),
+            "w_x": ((d, r), "normal", ("embed", "rnn")),
+            "conv_w": ((w, r), "normal", ("conv", "rnn")),
+            "conv_b": ((r,), "zeros", (None,)),
+            "w_rg": ((r, r), "normal", ("rnn", "rnn"), r**-0.5),
+            "b_rg": ((r,), "zeros", (None,)),
+            "w_ig": ((r, r), "normal", ("rnn", "rnn"), r**-0.5),
+            "b_ig": ((r,), "zeros", (None,)),
+            # softplus(lam): the decay rates
+            "lam": ((r,), "ones", (None,)),
+            "w_out": ((r, d), "normal", ("rnn", "embed")),
             "ln_mlp": L.norm_shapes(cfg), "mlp": L.mlp_shapes(cfg)}
 
 

@@ -43,21 +43,25 @@ def _heads(cfg):
 
 def _tm_shapes(cfg) -> dict:
     d, c, h = cfg.d_model, cfg.rwkv_head_dim, _heads(cfg)
-    return {"mu": ((5, d), "normal"),  # shift mixes of r, k, v, w, g
-            "w0": ((d,), "normal"),  # static decay bias
-            "w_lora_a": ((d, LORA), "normal"),
-            "w_lora_b": ((LORA, d), "normal"),
-            "u": ((h, c), "normal"),  # per-head bonus
-            "wr": ((d, d), "normal"), "wk": ((d, d), "normal"),
-            "wv": ((d, d), "normal"), "wg": ((d, d), "normal"),
-            "wo": ((d, d), "normal"),
-            "ln_x": ((d,), "ones")}  # group-norm scale
+    hd = ("embed", "heads")
+    # mu: the shift mixes of r, k, v, w and g
+    return {"mu": ((5, d), "normal", (None, None)),
+            "w0": ((d,), "normal", (None,)),  # static decay bias
+            "w_lora_a": ((d, LORA), "normal", ("embed", None)),
+            "w_lora_b": ((LORA, d), "normal", (None, "embed")),
+            "u": ((h, c), "normal", ("heads", None)),  # per-head bonus
+            "wr": ((d, d), "normal", hd), "wk": ((d, d), "normal", hd),
+            "wv": ((d, d), "normal", hd), "wg": ((d, d), "normal", hd),
+            "wo": ((d, d), "normal", ("heads", "embed")),
+            "ln_x": ((d,), "ones", (None,))}  # group-norm scale
 
 
 def _cm_shapes(cfg) -> dict:
     d, f = cfg.d_model, cfg.d_ff
-    return {"mu": ((2, d), "normal"), "wk": ((d, f), "normal"),
-            "wv": ((f, d), "normal"), "wr": ((d, d), "normal")}
+    return {"mu": ((2, d), "normal", (None, None)),
+            "wk": ((d, f), "normal", ("embed", "mlp")),
+            "wv": ((f, d), "normal", ("mlp", "embed")),
+            "wr": ((d, d), "normal", ("embed", "embed"))}
 
 
 def _block_shapes(cfg) -> dict:

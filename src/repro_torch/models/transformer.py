@@ -42,25 +42,26 @@ def dtype_of(cfg) -> torch.dtype:
 
 
 def embed_shapes(cfg) -> dict:
-    """{leaf: (shape, init[, std])} of the token embedding (std
+    """{leaf: (shape, init, axes[, std])} of the token embedding (std
     d_model**-0.5) and, untied, the (d, V_pad) output head."""
     v, d = cfg.padded_vocab, cfg.d_model
-    s = {"tok": ((v, d), "embed", d**-0.5)}
+    s = {"tok": ((v, d), "embed", ("vocab", "embed"), d**-0.5)}
     if not cfg.tie_embeddings:
-        s["head"] = ((d, v), "normal")
+        s["head"] = ((d, v), "normal", ("embed", "vocab"))
     return s
 
 
 def block_shapes(cfg) -> dict:
-    """{module: {leaf: (shape, init)}} of one transformer block."""
+    """{module: {leaf: (shape, init, axes)}} of one transformer
+    block."""
     return {"ln1": L.norm_shapes(cfg), "attn": attn_shapes(cfg),
             "ln2": L.norm_shapes(cfg),
             "ffn": moe_shapes(cfg) if cfg.n_experts else L.mlp_shapes(cfg)}
 
 
 def lm_shapes(cfg) -> dict:
-    """The decoder-only LM's parameter tree with (shape, init[, std])
-    leaves (models/module.py draws it): ``blocks`` a list of per-layer
+    """The decoder-only LM's parameter tree with (shape, init, axes[,
+    std]) leaves (models/module.py draws it): ``blocks`` a list of per-layer
     dicts."""
     return {"embed": embed_shapes(cfg),
             "blocks": [block_shapes(cfg) for _ in range(cfg.n_layers)],
@@ -104,8 +105,9 @@ class ModelDef(NamedTuple):
     paged-serving interface ``ServeEngine`` needs (None for a family
     without a paged cache).
 
-      shapes(cfg) -> parameter tree of (shape, init[, std]) leaves (the
-          reference's ``specs``; ``models.init_params`` draws it)
+      shapes(cfg) -> parameter tree of (shape, init, axes[, std])
+          leaves, axes the logical sharding axes (the reference's
+          ``specs``; ``models.init_params`` draws it)
       cache_specs(cfg, batch, cache_len) -> tree of (shape, dtype)
           leaves (``init_pools`` allocates it)
       prefill(params, batch, caches, cfg) -> (logits, caches)

@@ -4,7 +4,11 @@ Token (step, row, col) is a pure function of (seed, step, row): a restart
 at step k reproduces the exact stream, and the token, label and mask
 batches are the reference's (``train/data.py``) bit for bit for the same
 seed and step.  A background thread can prefetch batches ahead of the
-consumer.
+consumer.  Under a mesh each process builds only its rows of the same
+global batch: the block of rows ``ACT_RULES["batch"]`` gives it (the
+rows split over ``row_axes``), as the reference's per-shard callbacks
+build theirs; the modality stubs are drawn whole and sliced, so the
+global batch is the same on any mesh.
 
 The stream is a Zipf-ish unigram mix with a repeated motif per row, so a
 language model has signal to fit and its loss falls.
@@ -54,19 +58,35 @@ class SyntheticLMData:
     """Train batches of one (cfg, shape) on ``device``."""
 
     def __init__(self, cfg, shape_name: str, seed: int = 0, device="cuda",
-                 prefetch: int = 2):
+                 prefetch: int = 2, *, mesh=None):
         self.cfg, self.seed = cfg, seed
         self.device = resolve_device(device)
         self.specs = input_specs(cfg, shape_name)
+        b = self.specs["tokens"][0][0]
+        self.rows, self.row_axes = range(b), ()
+        if mesh is not None:
+            from repro_torch.launch.steps import batch_row_axes
+            from repro_torch.sharding.partitioning import axis_sizes
+
+            self.row_axes = batch_row_axes(mesh, b)
+            sizes = axis_sizes(mesh)
+            coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+            blk, n = 0, 1
+            for a in self.row_axes:  # major-to-minor, the reference's order
+                blk, n = blk * sizes[a] + coord[a], n * sizes[a]
+            per = b // n
+            self.rows = range(blk * per, (blk + 1) * per)
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._thread = None
         self._stop = threading.Event()
 
     def batch(self, step: int) -> dict:
-        """The batch of ``step`` (a pure function of seed and step)."""
-        b, s = self.specs["tokens"][0]
+        """The batch of ``step`` (a pure function of seed and step): this
+        process's rows of it under a mesh."""
+        s = self.specs["tokens"][0][1]
+        r0, r1 = self.rows.start, self.rows.stop
         rows = np.stack([_row_tokens(self.seed, step, r, s + 1,
-                                     self.cfg.vocab) for r in range(b)])
+                                     self.cfg.vocab) for r in self.rows])
         out = {}
         for key, (shape, dtype) in self.specs.items():
             if key == "tokens":
@@ -74,11 +94,12 @@ class SyntheticLMData:
             elif key == "labels":
                 arr = torch.from_numpy(rows[:, 1:].copy())
             elif key == "loss_mask":
-                arr = torch.ones(shape, dtype=dtype)
+                arr = torch.ones((r1 - r0,) + tuple(shape[1:]), dtype=dtype)
             else:  # modality stubs: deterministic pseudo-embeddings
                 r = np.random.Generator(np.random.Philox(
                     key=[(self.seed << 32) + step, _stub_key(key)]))
-                arr = torch.from_numpy(r.standard_normal(shape)).to(dtype)
+                arr = torch.from_numpy(
+                    r.standard_normal(shape)[r0:r1].copy()).to(dtype)
             out[key] = arr.to(self.device)
         return out
 

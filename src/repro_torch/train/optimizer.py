@@ -15,6 +15,11 @@ gradients are left as they are).  The step
 count is a 0-d int32 host tensor, so the schedule and the bias
 corrections are host scalars and the update reads nothing back from the
 device.
+
+Under a mesh the train step holds each parameter, m and v as this
+process's block (launch/steps.py) and passes ``update`` the global
+gradient norm of ``sharded_global_norm``: every distinct block counted
+once, whichever processes hold copies of it.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import torch
 from repro_torch.models.module import tree_leaves, tree_map
 
 __all__ = ["adamw", "cosine_schedule", "constant_schedule", "global_norm",
-           "clip_by_global_norm", "Optimizer"]
+           "sharded_global_norm", "clip_by_global_norm", "Optimizer"]
 
 _F32 = torch.float32
 
@@ -62,10 +67,27 @@ def global_norm(tree) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def clip_by_global_norm(tree, max_norm: float):
+def sharded_global_norm(blocks, counted, group=None) -> torch.Tensor:
+    """The global norm of a tree sharded over processes: this process's
+    float32 ``blocks`` and, leaf for leaf, ``counted`` (True where this
+    process holds the first copy of the block, False where another
+    process holds the same block); the squares of the counted blocks are
+    summed here and all-reduced over ``group`` (default: the world)."""
+    import torch.distributed as dist
+
+    norms = torch._foreach_norm([x.to(_F32) for x in tree_leaves(blocks)])
+    keep = [n for n, c in zip(norms, tree_leaves(counted)) if c]
+    sq = (torch.stack(keep).square().sum() if keep
+          else torch.zeros((), dtype=_F32, device=norms[0].device))
+    dist.all_reduce(sq, group=group)
+    return sq.sqrt()
+
+
+def clip_by_global_norm(tree, max_norm: float, norm=None):
     """(float32 leaves scaled by min(1, max_norm / (norm + 1e-9)), norm);
-    the input leaves are left as they are."""
-    norm = global_norm(tree)
+    the input leaves are left as they are.  ``norm`` defaults to the
+    tree's ``global_norm``."""
+    norm = global_norm(tree) if norm is None else norm
     scaled = iter(torch._foreach_mul(
         [x.to(_F32) for x in tree_leaves(tree)],
         torch.clamp(max_norm / (norm + 1e-9), max=1.0)))
@@ -82,11 +104,13 @@ def adamw(schedule: Callable, b1: float = 0.9, b2: float = 0.95,
                 "step": torch.zeros((), dtype=torch.int32)}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, norm=None):
+        """``norm``: the gradients' global norm when they are blocks of a
+        sharded tree (``sharded_global_norm``); by default their own."""
         step = state["step"] + 1
         lr = schedule(step)
         f = lambda x: float(torch.as_tensor(x, dtype=_F32))  # f32 exact
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm, norm)
         g = tree_leaves(grads)
         m, v, p = (tree_leaves(state["m"]), tree_leaves(state["v"]),
                    tree_leaves(params))

@@ -9,6 +9,13 @@
     running median of the last 20 is logged as an event.
 
 One host readback a step: the loss, which the NaN guard needs.
+
+With a live ``mesh`` the trainer runs the sharded step
+(``launch/steps.make_train_step(..., mesh=)``) over a state of DTensor
+blocks, on the data's rows (``SyntheticLMData(..., mesh=)``); every
+process runs the same loop, process 0 writes the checkpoints, and the
+loss every process reads is the global batch's, so all take the same
+branches.
 """
 
 from __future__ import annotations
@@ -42,12 +49,15 @@ class TrainerConfig:
 
 
 class Trainer:
-    def __init__(self, md, cfg, data, tcfg: TrainerConfig, device="cuda"):
+    def __init__(self, md, cfg, data, tcfg: TrainerConfig, device="cuda",
+                 mesh=None):
         self.md, self.cfg, self.data, self.tcfg = md, cfg, data, tcfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.step_fn, self.opt = make_train_step(
             md, cfg, peak_lr=tcfg.peak_lr, warmup=tcfg.warmup,
-            total_steps=tcfg.total_steps)
+            total_steps=tcfg.total_steps, mesh=mesh,
+            row_axes=getattr(data, "row_axes", None))
         self.ckpt = AsyncCheckpointer(tcfg.ckpt_dir, keep=tcfg.keep)
         self.metrics_log = []
         self.events = []  # (step, kind, detail): stragglers, rollbacks, ...
@@ -55,7 +65,7 @@ class Trainer:
     # ------------------------------------------------------------------
     def init_state(self):
         return init_state(self.cfg, self.opt, seed=self.tcfg.seed,
-                          device=self.device)
+                          device=self.device, mesh=self.mesh)
 
     def restore_or_init(self):
         state = self.init_state()
@@ -66,10 +76,13 @@ class Trainer:
         return state, step
 
     # ------------------------------------------------------------------
-    def run(self):
+    def run(self, until: int | None = None):
+        """Train from the latest checkpoint (or init) to step ``until``
+        (default ``total_steps``, which also sets the lr schedule)."""
         state, step = self.restore_or_init()
         times = []
-        while step < self.tcfg.total_steps:
+        until = self.tcfg.total_steps if until is None else until
+        while step < until:
             batch = self.data.batch(step)
             t0 = time.perf_counter()
             state, metrics = self.step_fn(state, batch)
@@ -96,7 +109,7 @@ class Trainer:
                 continue
 
             step += 1
-            if step % self.tcfg.log_every == 0 or step == self.tcfg.total_steps:
+            if step % self.tcfg.log_every == 0 or step == until:
                 self.metrics_log.append(
                     {"step": step, "loss": loss,
                      "lr": float(metrics["lr"]),

@@ -447,7 +447,7 @@ def test_apply_moe_on_card_equals_cpu(cuda):
     cfg = get_config("granite-moe-3b-a800m", dtype="float32")
     gen = torch.Generator().manual_seed(1)
     p = {name: torch.randn(shape, generator=gen) * shape[-2]**-0.5
-         for name, (shape, _) in M.moe_shapes(cfg).items()}
+         for name, (shape, *_) in M.moe_shapes(cfg).items()}
     pc = {k: v.to(cuda) for k, v in p.items()}
     for b, s in ((8, 1), (8, 64)):
         x = torch.randn((b, s, cfg.d_model), generator=gen)
@@ -1037,3 +1037,92 @@ def test_device_model_on_card_equals_cpu(cuda):
     torch.cuda.synchronize()
     assert bmvm.launches == before
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A world-one NCCL group (file rendezvous) and its (1, 1) ``("data",
+    "model")`` mesh, installed as the ambient mesh; destroyed after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import (init_distributed, make_mesh_for,
+                                         set_mesh)
+
+    init_distributed("cuda", init_method=f"file://{tmp_path}/rendezvous",
+                     rank=0, world_size=1)
+    try:
+        mesh = make_mesh_for(1, 1)
+        set_mesh(mesh)
+        yield mesh
+    finally:
+        set_mesh(None)
+        dist.destroy_process_group()
+
+
+def test_sharded_step_at_world_one_equals_unsharded(nccl_mesh):
+    """The sharded train step (DTensor blocks on the (1, 1) NCCL mesh) of
+    camformer-bert smoke with ``use_kernel`` equals the unsharded step on
+    the card: 3 steps' losses within 1e-6, kernel 4 launched exactly as
+    often (2 a layer a step: forward and recompute)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES, smoke_config
+    from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.models import get_model_def
+    from repro_torch.train.data import SyntheticLMData
+
+    assert dist.get_backend() == "nccl"
+    SHAPES["gpu_dist"] = dict(seq_len=64, global_batch=4, kind="train")
+    cfg = smoke_config("camformer-bert", attn_backend="camformer",
+                       use_kernel=True)
+    md = get_model_def(cfg)
+    runs = {}
+    for mesh in (None, nccl_mesh):
+        data = SyntheticLMData(cfg, "gpu_dist", seed=1, device="cuda",
+                               mesh=mesh)
+        step, opt = make_train_step(md, cfg, warmup=1, mesh=mesh)
+        state = init_state(cfg, opt, seed=0, device="cuda", mesh=mesh)
+        before, losses = bmvm.launches, []
+        for i in range(3):
+            state, m = step(state, data.batch(i))
+            losses.append(float(m["loss"]))
+        runs[mesh is None] = (losses, bmvm.launches - before)
+    assert runs[True][1] == runs[False][1] == 2 * cfg.n_layers * 3
+    np.testing.assert_allclose(runs[False][0], runs[True][0], rtol=1e-6,
+                               atol=0)
+
+
+def test_distributed_topk_decode_under_a_world_one_group(nccl_mesh):
+    """Under the NCCL group and its mesh, a B = 1 camformer decode with
+    ``distributed_topk`` (kernel 3 with ``use_kernel``) equals the decode
+    with the flag off: no axis of a world of one shards the cache."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.backend import get_backend
+    from repro_torch.models import init_pools
+
+    cfg = smoke_config("mistral-nemo-12b", attn_backend="camformer",
+                       n_heads=4, n_kv_heads=2, use_kernel=True,
+                       distributed_topk=True)
+    be = get_backend("camformer")
+    length, s, d = 48, 37, cfg.head_dim
+    gen = torch.Generator().manual_seed(5)
+    k, v = (torch.randn((1, 2, s + 1, d), generator=gen).cuda()
+            for _ in range(2))
+    q = torch.randn((1, 4, 1, d), generator=gen).cuda()
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32,  # noqa: E731
+                                 device="cuda")
+
+    def decode(c):
+        cache = init_pools([be.cache_spec(c, 1, length, torch.float32)],
+                           "cuda")[0]
+        cache = be.write_cache(cache, k[:, :, :s], v[:, :, :s], i32(0), c)
+        before = btk.launches
+        out, _ = be.decode(q, cache, k[:, :, s:], v[:, :, s:], i32(s),
+                           i32([s + 1]), i32([[s]]), c)
+        torch.cuda.synchronize()
+        return out.cpu(), btk.launches - before
+
+    got, n = decode(cfg)
+    want, n_off = decode(cfg.replace(distributed_topk=False))
+    assert n == n_off == 1
+    assert torch.equal(got, want)

@@ -91,7 +91,7 @@ def test_gelu_mlps_match_reference(arch):
     jc, tc = j_smoke(arch), t_smoke(arch)
     rng = np.random.default_rng(1)
     p = {name: (rng.standard_normal(shape) * 0.3).astype(np.float32)
-         for name, (shape, _) in t_layers.mlp_shapes(tc).items()}
+         for name, (shape, *_) in t_layers.mlp_shapes(tc).items()}
     assert ("w_gate" in p) == (arch == "recurrentgemma-2b")
     x = rng.standard_normal((2, 5, tc.d_model)).astype(np.float32)
     _close(t_layers.apply_mlp({k: torch.from_numpy(v) for k, v in p.items()},
