@@ -121,15 +121,32 @@ Phases, in order (each raises on failure; nothing is caught):
      ``("data", "model")`` mesh as the ambient mesh: (a)
      ``camformer-bert`` at full width and depth through
      ``Trainer(mesh=)`` (the sharded step: DTensor blocks, gathered
-     bf16 parameters, gradients reduced to blocks, the global norm) for
-     4 steps of phase 8's schedule and seeds, its losses within 1e-6
-     relative of phase 8's first 4, kernel 4 exactly 2 x 24 x 4 times,
-     no plain version on the card, step time and peak GB printed beside
+     bf16 parameters, gradients reduced to blocks, the global norm; the
+     ``model``-axis split's code, strategy ``heads``, on whole blocks
+     with identity collectives at model = 1) for 4 steps of phase 8's
+     schedule and seeds, its losses within 1e-6 relative of phase 8's
+     first 4, kernel 4 exactly 2 x 24 x 4 times, the split regions run
+     on all 16 heads, 4096 MLP columns and the whole vocabulary, no
+     plain version on the card, step time and peak GB printed beside
      phase 8's; (b) its step-4 checkpoint (written by process 0)
      restored through ``rescale_state`` onto the mesh, ``verify_rescale``
      true; (c) a B = 1 ``distributed_topk`` decode (512-token prompt, 8
      steps) equal to the flag-off decode bit for bit; the group is
-     destroyed and the NCCL version printed.
+     destroyed and the NCCL version printed;
+ 13. tensor-parallel serving's shares, in one process (NCCL refuses two
+     processes on one device, and a run gets one card): one layer of
+     ``camformer-bert`` (on ``camformer``, ``dense``, ``binary``,
+     ``hybrid``) and of ``granite-moe-3b-a800m`` (G = 3; ``camformer``,
+     ``dense``) at full width, served by a tp = 1 engine with phase 5's
+     geometry; its recorded 384-row prefill chunk and last decode tick
+     are re-run as each rank's ``tp_local_decode`` on its
+     ``slice_pools`` slice, at tp 2 and 4 (and 8 for granite): the
+     outputs concatenated in rank order equal the tp = 1 call's bit for
+     bit, each written slice equals the tp = 1 pool's head slice (the
+     trash page aside) and holds 1/tp of its bytes, kernels 1, 2 and 2b
+     launch exactly tp times the tp = 1 call's, no plain version runs
+     on the card; the per-rank pool bytes and the phase's seconds are
+     printed.
 
 Phase 3 also holds kernels 1, 2 (dense and binary) and 2b at granite's
 GQA width (8 kv heads, G = 3), and kernel 4 at the train step's shape
@@ -3001,6 +3018,8 @@ def sharded_train_phase(mesh, smi):
     from repro_torch.configs import get_config
     from repro_torch.launch.elastic import rescale_state, verify_rescale
     from repro_torch.models import get_model_def
+    from repro_torch.models.attention import attn_strategy
+    from repro_torch.sharding import partitioning as P
     from repro_torch.train.data import SyntheticLMData
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -3018,6 +3037,7 @@ def sharded_train_phase(mesh, smi):
         trainer = Trainer(md, cfg, data, tcfg, device="cuda", mesh=mesh)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        P.SPLIT_SEEN.clear()
         with plain_calls_on_card() as plain:
             reset_launches()
             t0 = time.perf_counter()
@@ -3030,6 +3050,11 @@ def sharded_train_phase(mesh, smi):
         assert launches["bacam_mvm"] == 2 * cfg.n_layers * DIST_STEPS, \
             launches
         assert only_bacam_mvm(launches), launches
+        # the model-axis split's code ran, on whole blocks at model = 1
+        seen = dict(P.SPLIT_SEEN)
+        assert seen == dict(attn_q_heads=cfg.n_heads,
+                            attn_kv_heads=cfg.n_kv_heads, mlp_cols=cfg.d_ff,
+                            vocab_rows=cfg.padded_vocab), seen
         losses = [r["loss"] for r in trainer.metrics_log]
         ref = TRAIN_LINES["camformer"]
         want = ref["losses"][:DIST_STEPS]
@@ -3053,6 +3078,8 @@ def sharded_train_phase(mesh, smi):
                 step_ratio=step_s / ref["median_step_s"], wall_s=wall,
                 peak_mem_gb=peak, phase8_peak_mem_gb=ref["peak_mem_gb"],
                 kernel4_launches=launches["bacam_mvm"],
+                model_split=dict(strategy=attn_strategy(cfg, 1),
+                                 local_extents=seen),
                 rescale=dict(step=at, bit_identical=same,
                              save_restore_verify_s=rescale_s))
     log("phase 12 sharded train camformer-bert camformer use_kernel bf16 "
@@ -3124,6 +3151,123 @@ def distribution_phase(smi):
     log(f"phase 12: backend {backend}, NCCL {nccl}, "
         f"{time.perf_counter() - t0:.1f} s")
     assert backend == "nccl", backend
+    return runs
+
+
+# phase 13: each rank's share of a head-sharded tick, in one process
+
+TP_CASES = (("camformer-bert", "camformer", (2, 4)),
+            ("camformer-bert", "dense", (2, 4)),
+            ("camformer-bert", "binary", (2, 4)),
+            ("camformer-bert", "hybrid", (2, 4)),
+            ("granite-moe-3b-a800m", "camformer", (2, 4, 8)),
+            ("granite-moe-3b-a800m", "dense", (2, 4, 8)))
+
+
+def recorded_layer_calls(arch, backend):
+    """One layer of ``arch`` at full width (depth cut to 1), bf16, served
+    by a tp = 1 ``ServeEngine`` with phase 5's geometry (8 slots, 1024
+    tokens, 64-token pages, sync mode) for the slice's 8 prompts and 4
+    new tokens: the layer's ``paged_decode`` inputs (its pools copied
+    before the call) at the 384-row prefill chunk and at the last decode
+    tick."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.backend import get_backend
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeEngine
+
+    cfg = get_config(arch, attn_backend=backend, n_layers=1)
+    bk = get_backend(backend)
+    eng = ServeEngine(cfg, init_params(cfg, device="cuda", seed=SEED),
+                      max_batch=8, max_len=1024, page_size=64, mode="sync",
+                      device="cuda")
+    calls = {}
+
+    def record(q, cache, k, v, positions, table, kv_len, cfg_, *, base=None):
+        kind = "decode" if q.shape[2] == 1 else f"chunk{q.shape[2]}"
+        calls[kind] = (q.clone(), {n: t.clone() for n, t in cache.items()},
+                       k.clone(), v.clone(), positions.clone(),
+                       table.clone(), kv_len.clone(),
+                       None if base is None else base.clone(), cfg_)
+        return type(bk).paged_decode(bk, q, cache, k, v, positions, table,
+                                     kv_len, cfg_, base=base)
+
+    bk.paged_decode = record
+    try:
+        for _ in eng.stream(*slice_requests(cfg.vocab, SEED, max_new=4)):
+            pass
+    finally:
+        del bk.paged_decode
+    assert eng.tick_errors == 0, eng.last_error
+    chunk = f"chunk{max(SLICE_LENS)}"
+    assert set(calls) == {chunk, "decode"}, sorted(calls)
+    del eng
+    return bk, cfg, {"prefill chunk": calls[chunk], "decode": calls["decode"]}
+
+
+def tp_share_phase(smi):
+    """Phase 13: for each case of TP_CASES, at each tp degree, each rank's
+    ``tp_local_decode`` on its ``slice_pools`` slice, run in turn in this
+    process on the recorded prefill chunk and decode tick: the outputs
+    concatenated in rank order equal the tp = 1 call's bit for bit, each
+    rank's written pool slice equals the tp = 1 pool's head slice bit
+    for bit (but the trash page 0, where every padding row lands in the
+    scatter's order) and holds 1/tp of its bytes, the ranks launch exactly tp
+    times what the tp = 1 call launches, and no plain version runs on
+    the card.  Returns the ranks' launches."""
+    from repro_torch.models.attention import tp_local_decode
+    from repro_torch.serving import sharded
+
+    t0 = time.perf_counter()
+    runs, lines = [], {}
+    for arch, backend, degrees in TP_CASES:
+        bk, cfg, calls = recorded_layer_calls(arch, backend)
+        for kind, (q, pools, k, v, pos, table, kv_len, base,
+                   cfg_) in calls.items():
+            copy = lambda: {n: t.clone() for n, t in pools.items()}
+            with plain_calls_on_card() as plain:
+                reset_launches()
+                out, whole = bk.paged_decode(q, copy(), k, v, pos, table,
+                                             kv_len, cfg_, base=base)
+                torch.cuda.synchronize()
+                one = read_launches()
+                bytes_1 = sharded.pool_bytes([whole])
+                for tp in degrees:
+                    reset_launches()
+                    outs, ranks_bytes = [], []
+                    for r in range(tp):
+                        mine = sharded.slice_pools([pools], r, tp)[0]
+                        o, mine = tp_local_decode(bk, q, mine, k, v, pos,
+                                                  table, kv_len, cfg_, base,
+                                                  r, tp)
+                        want = sharded.slice_pools([whole], r, tp)[0]
+                        for n in want:  # page 0 is the trash page
+                            a, b = ((mine[n][1:], want[n][1:])
+                                    if n.endswith("_pages")
+                                    else (mine[n], want[n]))
+                            assert torch.equal(a, b), \
+                                (arch, backend, kind, tp, r, n)
+                        ranks_bytes.append(sharded.pool_bytes([mine]))
+                        outs.append(o)
+                    torch.cuda.synchronize()
+                    got = read_launches()
+                    runs.append(got)
+                    assert torch.equal(torch.cat(outs, dim=1), out), \
+                        (arch, backend, kind, tp)
+                    assert all(b * tp == bytes_1 for b in ranks_bytes), \
+                        (bytes_1, ranks_bytes)
+                    assert got == {n: tp * c for n, c in one.items()}, \
+                        (arch, backend, kind, tp, one, got)
+                    lines[f"{arch}/{backend} {kind} tp={tp}"] = dict(
+                        pool_bytes_tp1=bytes_1, pool_bytes_a_rank=ranks_bytes,
+                        launches={n: c for n, c in got.items() if c})
+            assert plain == {}, (arch, backend, kind, plain)
+        del calls
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f"phase 13 tp shares, one process, each rank's share = tp = 1 bit "
+        f"for bit ({smi}): {json.dumps(lines)}")
+    log(f"phase 13: {seconds:.1f} s")
     return runs
 
 
@@ -3256,6 +3400,8 @@ def main():
         f"model")
     runs += distribution_phase(smi_line)
     log(f"elapsed {time.perf_counter() - t0:.1f}s: distribution")
+    runs += tp_share_phase(smi_line)
+    log(f"elapsed {time.perf_counter() - t0:.1f}s: tp shares")
     for row in rows:  # launches over every path run
         row["launches"] = sum(run.get(row["name"], 0) for run in runs)
         if row["path"] != "none":

@@ -13,6 +13,7 @@ are the serving flags and the engine they build, shared by
 from __future__ import annotations
 
 import argparse
+import os
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import init_params
@@ -54,7 +55,19 @@ def apply_backend_args(cfg, args):
 
 def build_engine(args) -> ServeEngine:
     """The engine ``launch/serve.py`` and ``launch/gateway.py`` serve
-    from, built from their shared flags."""
+    from, built from their shared flags.  With ``--tp N > 1`` under
+    ``torchrun`` (one process a device) this process joins the default
+    group (NCCL on the card, gloo with ``--device cpu``) unless it has
+    already; every process builds the same engine from the same seed,
+    and rank 0 serves (``ServeEngine.follow`` on the others)."""
+    if args.tp > 1 and "WORLD_SIZE" in os.environ:
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import init_distributed, make_tp_mesh
+
+        if not dist.is_initialized():
+            init_distributed(args.device)
+        make_tp_mesh(args.tp)  # every process of the world, together
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = apply_backend_args(cfg, args)
     if args.prefill_chunk is not None:
@@ -74,6 +87,7 @@ def build_engine(args) -> ServeEngine:
         prefill_impl=args.prefill_impl,
         spec_k=args.spec_k,
         spec_backend=args.spec_backend,
+        tp=args.tp,
         max_queue=args.max_queue,
         faults=faults,
         device=args.device,
@@ -114,6 +128,14 @@ def add_engine_args(ap: argparse.ArgumentParser, *, max_batch: int,
                          "and verify them in one target pass (0 = off)")
     ap.add_argument("--spec-backend", default=None,
                     help="drafter attention backend (default binary)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree: head-shard every page "
+                         "pool over a tp-axis mesh of processes "
+                         "(launch/mesh.py make_tp_mesh; run under torchrun "
+                         "--nproc-per-node N) and gather the heads every "
+                         "layer; 1 (default) is the single-process engine, "
+                         "same code path, and any degree is token-for-"
+                         "token identical to it")
     ap.add_argument("--max-queue", type=int, default=None,
                     help="bounded admission: beyond this queue depth new "
                          "requests are refused (QueueFullError; HTTP 429 + "

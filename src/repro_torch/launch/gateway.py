@@ -7,6 +7,10 @@
         [--paged-impl fused|gather] [--max-queue 16] \\
         [--faults 'gateway.disconnect@0::p0.1'] [--device cuda|cpu]
 
+    # tensor-parallel, one process a device (gloo with --device cpu)
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.gateway \
+        --arch camformer-bert --smoke --tp 2 --device cpu --port 8000
+
 Then point traffic at it:
 
     curl -N -X POST http://127.0.0.1:8000/v1/generate \\
@@ -17,8 +21,11 @@ Then point traffic at it:
 Each generated token streams back as a server-sent event; closing the
 connection mid-stream cancels the request and frees its pages.  Runs on
 the card by default (``--device cpu`` runs the plain PyTorch path);
-weights are random, drawn from ``--seed``.  The flags are the reference
-launcher's minus ``--tp`` (tensor parallelism is not ported).
+weights are random, drawn from ``--seed``.  ``--tp N`` head-shards the
+page pools over N processes (serving/sharded.py): rank 0 serves HTTP and
+drives the engine; the other ranks run its ticks on rank 0's inputs
+(``ServeEngine.follow``) until it stops.  The flags are the reference
+launcher's, plus ``--device`` and ``--seed``.
 """
 
 from __future__ import annotations
@@ -38,15 +45,19 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     engine = build_engine(args)
+    if engine.tp_rank > 0:
+        engine.follow()
+        return
     layout = engine.cfg.uniform_backend or ",".join(engine.cfg.layer_backends)
 
     async def serve() -> None:
         gw = Gateway(engine, host=args.host, port=args.port)
         await gw.start()
+        shard = f", head-sharded tp={engine.tp}" if engine.tp > 1 else ""
         print(
             f"gateway [{layout}] listening on http://{args.host}:{gw.port} "
             f"(pool {engine.kv.n_pages - 1} pages x {engine.kv.page_size} "
-            f"tokens, {args.mode} loop on {engine.device.type})",
+            f"tokens, {args.mode} loop on {engine.device.type}{shard})",
             flush=True,
         )
         try:
@@ -60,6 +71,8 @@ def main(argv=None) -> None:
         asyncio.run(serve())
     except KeyboardInterrupt:
         print("gateway stopped")
+    finally:
+        engine.close()  # the engine thread has stopped: release the ranks
 
 
 if __name__ == "__main__":

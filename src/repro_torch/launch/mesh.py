@@ -13,6 +13,7 @@ world, such as the production meshes.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from typing import NamedTuple
@@ -21,7 +22,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["MeshShape", "make_production_mesh", "make_mesh_for",
-           "make_tp_mesh", "set_mesh", "get_mesh", "init_distributed"]
+           "make_tp_mesh", "set_mesh", "get_mesh", "init_distributed",
+           "tp_scope", "get_tp_scope", "tp_control_group"]
 
 
 class MeshShape(NamedTuple):
@@ -109,17 +111,65 @@ def make_mesh_for(devices: int, model_parallel: int = 1,
     return _live((devices // model_parallel, model_parallel), axes)
 
 
+_TP_MESHES: dict = {}  # tp -> (mesh or None, gloo control group)
+
+
 def make_tp_mesh(tp: int):
-    """A one-axis ``("tp",)`` mesh of ``tp`` processes for tensor-parallel
-    serving.  The axis is deliberately not ``model``: the logical-axis
-    rules react only to pod/data/model."""
-    if not dist.is_initialized() or _world() != tp:
+    """A one-axis ``("tp",)`` mesh over the first ``tp`` processes of the
+    world, for tensor-parallel serving (the reference takes the first
+    ``tp`` devices); None on the processes outside it.  Every process of
+    the world makes its groups together the first time (``new_group`` is
+    collective), so one world can hold meshes of several degrees; later
+    calls return the same mesh.  Beside the mesh's group it makes a gloo
+    group over the same processes for host objects (``tp_control_group``:
+    NCCL never carries them).  The axis is deliberately not ``model``:
+    the logical-axis rules react only to pod/data/model."""
+    if not dist.is_initialized() or _world() < tp:
         raise ValueError(f"make_tp_mesh: the mesh needs {tp} processes, "
                          f"the world has {_world()}")
-    return _live((tp,), ("tp",))
+    if tp not in _TP_MESHES:
+        import datetime
+
+        from torch.distributed.device_mesh import DeviceMesh
+
+        ranks = list(range(tp))
+        group = dist.new_group(ranks)
+        # a follower waits for rank 0's next tick as long as a server
+        # idles: the control group's timeout is long
+        control = dist.new_group(ranks, backend="gloo",
+                                 timeout=datetime.timedelta(days=30))
+        mesh = (DeviceMesh.from_group(group, _device_type(),
+                                      mesh_dim_names=("tp",))
+                if dist.get_rank() < tp else None)
+        _TP_MESHES[tp] = (mesh, control)
+    return _TP_MESHES[tp][0]
+
+
+def tp_control_group(tp: int):
+    """The gloo group beside ``make_tp_mesh(tp)``'s mesh."""
+    return _TP_MESHES[tp][1]
 
 
 _MESH = None
+_TP_SCOPE = None
+
+
+@contextlib.contextmanager
+def tp_scope(mesh):
+    """Code inside runs one process's share of a tensor-parallel serving
+    step over ``mesh`` (``make_tp_mesh``): attention over a head-sliced
+    page pool gathers its heads over the mesh's group."""
+    global _TP_SCOPE
+    prev, _TP_SCOPE = _TP_SCOPE, mesh
+    try:
+        yield
+    finally:
+        _TP_SCOPE = prev
+
+
+def get_tp_scope():
+    """The mesh of the enclosing ``tp_scope``, None outside one."""
+    return _TP_SCOPE
 
 
 def set_mesh(mesh) -> None:

@@ -8,6 +8,10 @@
         [--spec-k 3 --spec-backend binary] [--max-queue 8] \
         [--deadline-ms 500] [--faults step.error@3] [--device cuda|cpu]
 
+    # tensor-parallel, one process a device (gloo with --device cpu)
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch camformer-bert --smoke --tp 2 --device cpu
+
 Serves the dense, MoE and VLM families (the VLM text-only, as the
 reference does).  The encoder-decoder (``audio``/``encdec``), Griffin
 (``hybrid``) and RWKV-6 (``ssm``) families have no paged interface, in
@@ -18,8 +22,11 @@ the repository).  ``--temperature 0`` (the default) decodes greedily;
 one sampling policy applies to every CLI request.  ``--spec-k N`` turns
 on self-speculative decoding with an ``--spec-backend`` drafter.
 ``--max-queue``, ``--deadline-ms`` and ``--faults`` are the reference's
-admission bound, per-request deadline and chaos fault plan.  The flags
-are the reference launcher's minus ``--tp``.
+admission bound, per-request deadline and chaos fault plan.  ``--tp N``
+head-shards the page pools over N processes (serving/sharded.py): rank 0
+submits the requests and prints; the other ranks run the engine loop on
+rank 0's tick inputs (``ServeEngine.follow``) and print nothing.  The
+flags are the reference launcher's, plus ``--device`` and ``--seed``.
 """
 
 from __future__ import annotations
@@ -53,11 +60,16 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     eng = build_engine(args)
+    if eng.tp_rank > 0:
+        eng.follow()
+        return eng
     cfg = eng.cfg
     layout = cfg.uniform_backend or ",".join(cfg.layer_backends)
+    shard = (f", head-sharded tp={eng.tp} over {eng.tp} processes"
+             if eng.tp > 1 else "")
     print(f"paged KV cache [{layout}] on {eng.device}: {eng.kv.n_pages} "
           f"pages x {eng.kv.page_size} tokens "
-          f"(page table {eng.kv.table.shape})")
+          f"(page table {eng.kv.table.shape}{shard})")
     sampling = SamplingParams(max_new=args.max_new,
                               temperature=args.temperature, top_k=args.top_k,
                               top_p=args.top_p, deadline_ms=args.deadline_ms)
@@ -73,6 +85,7 @@ def main(argv=None):
             tail = f"  [{out.finish_reason}]" if out.finished else ""
             print(f"  req {out.rid} #{out.index}: {out.token}{tail}")
     wall = time.perf_counter() - t0
+    eng.close()
     print(f"[{args.mode}] {eng.ticks} decode ticks in {wall:.2f}s "
           f"({eng.ticks / max(wall, 1e-9):.1f} ticks/s), "
           f"{eng.readbacks} readbacks, host blocked "

@@ -25,6 +25,7 @@ names the mesh axes a batch's rows are split over.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -119,57 +120,146 @@ def _accumulate(value_and_grad, params, batch, accum):
     return loss / accum, {}, gsum
 
 
+# the families whose loss runs through transformer.run_block with
+# attention_block and the MLP or MoE: the ``model``-axis compute split
+SPLIT_FAMILIES = ("dense", "moe", "vlm")
+
+
+def model_split_plan(cfg, params, mesh) -> dict:
+    """How the ``model``-split step treats each parameter, a tree in the
+    structure of ``params`` (DTensor blocks), for the ``tp`` profile on a
+    mesh with a ``model`` axis (``_sharded_step``):
+
+      ``"split"``: kept split along ``model`` where the resolved spec put
+          it; the model code runs on the local block (attention heads,
+          MLP columns and rows, vocabulary rows, experts) and its
+          gradient is the local block's;
+      ``"partial"``: gathered whole, but used only inside a split region
+          (``wk``/``wv`` under ``qheads``, the attention biases of split
+          heads, the MLP's ``b_in``, the MoE router): each process's
+          gradient is its part, summed over ``model``;
+      ``"whole"``: gathered whole and used whole (norms, ``b_out``, a
+          block the resolver left unsplit, attention whose heads do not
+          divide): each process's gradient is the whole one."""
+    from repro_torch.models.attention import attn_strategy
+
+    m = tuple(mesh.mesh_dim_names).index("model")
+    strategy = attn_strategy(cfg, P.axis_sizes(mesh)["model"])
+    on_model = lambda t: t.placements[m].is_shard()
+
+    def module(mod, kind):
+        if kind == "attn":  # heads follow wq; whole K/V serve the local q
+            heads = strategy in ("heads", "qheads") and on_model(mod["wq"])
+            hows = {k: ("whole" if not heads
+                        else "split" if k in ("wq", "wo") or (
+                            k in ("wk", "wv") and strategy == "heads"
+                            and on_model(t))
+                        else "partial") for k, t in mod.items()}
+        elif kind == "ffn" and "router" in mod:  # MoE: experts split
+            experts = on_model(mod["w_gate"])
+            hows = {k: ("whole" if not experts else
+                        "partial" if k == "router" else "split")
+                    for k in mod}
+        elif kind == "ffn":  # MLP: hidden units split
+            mlp = on_model(mod["w_down"] if "w_down" in mod
+                           else mod["w_out"])
+            hows = {k: ("whole" if not mlp or k == "b_out" else
+                        "partial" if k == "b_in" else "split")
+                    for k in mod}
+        elif kind == "embed":  # vocabulary rows
+            hows = {k: "split" if on_model(t) else "whole"
+                    for k, t in mod.items()}
+        else:
+            hows = dict.fromkeys(mod, "whole")
+        return hows
+
+    def walk(node, kind=""):
+        if isinstance(node, list):
+            return [walk(v, kind) for v in node]
+        if all(not isinstance(v, (dict, list)) for v in node.values()):
+            return module(node, kind)
+        return {k: walk(v, k) for k, v in node.items()}
+
+    return walk(params)
+
+
 def _sharded_step(md, cfg, opt, value_and_grad, accum, mesh, row_axes):
     """The train step on ``mesh``, each process holding its blocks of the
     state and its rows of the batch (split over ``row_axes``):
 
-      1. every parameter is cast to the compute type and gathered whole
-         (``DTensor.full_tensor``);
+      1. every parameter is cast to the compute type and gathered over
+         the mesh: whole, or, under the ``tp`` profile on a mesh with a
+         ``model`` axis for a family of ``SPLIT_FAMILIES``, over the
+         other axes only where ``model_split_plan`` keeps it split along
+         ``model``;
       2. ``value_and_grad`` runs on this process's rows inside
          ``sharded_batch``: its loss is this process's share of the
          global batch's (sums over the local rows divided by global
          counts, models/layers.py and models/moe.py), so the gradients
-         of the processes along ``row_axes`` sum to the global gradient;
-      3. each gradient is summed over ``row_axes`` only and this process
+         of the processes along ``row_axes`` sum to the global gradient.
+         With the ``model`` split it runs inside ``model_split`` too:
+         the processes along ``model`` run the same rows, each on its
+         blocks of the split regions (models/attention.py, layers.py,
+         moe.py), and compute the same loss;
+      3. each gradient is summed over ``row_axes``, and over ``model``
+         where it is a part (``"partial"`` leaves), and this process
          keeps its block (``Partial`` -> the parameter's placements: a
-         reduce-scatter where the block is split along a row axis, an
-         all-reduce where it is replicated along one, a local slice
-         along the others: processes along those computed the same
-         rows);
+         reduce-scatter where the block is split along a summed axis,
+         an all-reduce where it is replicated along one, a local slice
+         along the others, whose processes computed the same rows; a
+         ``"split"`` leaf's gradient is already its block along
+         ``model``);
       4. AdamW updates the local blocks in place, clipped by the global
          norm (``sharded_global_norm``: each distinct block once);
       5. the metrics are summed over ``row_axes``: the global batch's
          (``tokens`` is already the global count).
 
-    Compute splits over the batch axes only: a ``model`` axis holds the
-    ``tp`` profile's storage layout, each process along it running the
-    same rows (the reference's GSPMD also splits the compute over it)."""
+    The ``dp`` profile, and families outside ``SPLIT_FAMILIES``
+    (``encdec``/``audio``, ``hybrid``, ``ssm``), gather every parameter
+    whole: their compute splits over the batch axes only.  The
+    returned step's ``model_plan`` is the plan (None without the
+    split)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
     dt = dtype_of(cfg)
     names = tuple(mesh.mesh_dim_names)
-    partial = tuple(Partial() if a in row_axes else Replicate()
-                    for a in names)
     coord = mesh.get_coordinate()
+    split = (P.get_parallelism_profile() == "tp" and "model" in names
+             and cfg.family in SPLIT_FAMILIES)
+    plan = None  # model_split_plan's tree, made at the first step
 
     def counted(p):  # the first copy of a block replicated along a dim
         return all(c == 0 for c, pl in zip(coord, p.placements)
                    if pl.is_replicate())
 
-    def reduce_block(g, p):
-        g = DTensor.from_local(g.to(torch.float32), mesh, partial,
+    def gathered(p, h):  # the placements a leaf is gathered to
+        return tuple(pl if a == "model" and h == "split" else Replicate()
+                     for a, pl in zip(names, p.placements))
+
+    def reduce_block(g, p, h):
+        src = tuple(Partial() if a in row_axes
+                    or (a == "model" and h == "partial")
+                    else pl for a, pl in zip(names, gathered(p, h)))
+        g = DTensor.from_local(g.to(torch.float32), mesh, src,
                                run_check=False)
         return g.redistribute(mesh, p.placements).to_local()
 
     def train_step(state, batch):
+        nonlocal plan
         params = state["params"]
+        if plan is None:
+            plan = (model_split_plan(cfg, params, mesh) if split
+                    else tree_map(lambda _: "whole", params))
+            train_step.model_plan = plan if split else None
         with torch.no_grad():
-            full = tree_map(lambda p: p.to(dt).full_tensor(), params)
-        with P.sharded_batch(mesh, row_axes):
+            full = tree_map(lambda p, h: p.to(dt).redistribute(
+                mesh, gathered(p, h)).to_local(), params, plan)
+        ctx = P.model_split(mesh) if split else contextlib.nullcontext()
+        with P.sharded_batch(mesh, row_axes), ctx:
             loss, aux, grads = _accumulate(value_and_grad, full, batch,
                                            accum)
             del full
-            grads = tree_map(reduce_block, grads, params)
+            grads = tree_map(reduce_block, grads, params, plan)
             raw = {"loss": loss, **aux}
             keys = [k for k in ("loss", "ce", "moe_aux_loss",
                                 "moe_drop_frac") if k in raw]
@@ -189,6 +279,7 @@ def _sharded_step(md, cfg, opt, value_and_grad, accum, mesh, row_axes):
         return {"params": params,
                 "opt": dict(state["opt"], step=opt_state["step"])}, metrics
 
+    train_step.model_plan = None
     return train_step
 
 

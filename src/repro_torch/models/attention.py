@@ -5,10 +5,14 @@ keys of cross-attention."""
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core.backend import AttentionBackend, get_backend
 from repro_torch.models.layers import rope
+from repro_torch.sharding import partitioning as P
 
-__all__ = ["attn_shapes", "attn_cache_spec", "attention_block"]
+__all__ = ["attn_shapes", "attn_cache_spec", "attention_block",
+           "tp_local_decode", "tp_gather", "attn_strategy"]
 
 
 def _resolve_backend(cfg, backend=None) -> AttentionBackend:
@@ -38,19 +42,113 @@ def attn_cache_spec(cfg, batch: int, cache_len: int, dtype, backend=None):
                                                      dtype)
 
 
-def _project(p, x, cfg):
-    """QKV projections (+ optional bias) into (B, heads, S, head_dim)."""
-    dt = x.dtype
+def tp_local_decode(bk, q, cache, k, v, positions, page_table, kv_len, cfg,
+                    scale_base, rank: int, tp: int):
+    """One process's share of paged attention over a head-sharded pool
+    (tensor-parallel serving, serving/sharded.py): q/k/v, which carry
+    every head, are cut to process ``rank``'s contiguous heads (kv heads
+    ``[i*hl, (i+1)*hl)`` own q heads ``[i*g*hl, (i+1)*g*hl)``) as
+    contiguous tensors, and the backend's paged write and attention run
+    unchanged on the slice and on ``cache``, this process's pool slice.
+    Returns (out (B, H / tp, S, D), cache); ``tp_gather`` reassembles the
+    heads.  One process can run every rank's share in turn (the tests
+    do); the served path gathers through the group."""
+    hl = cache["v_pages"].shape[1]
+    if hl * tp != cfg.n_kv_heads:
+        raise ValueError(f"a pool slice of {hl} kv heads is not 1/{tp} of "
+                         f"n_kv_heads={cfg.n_kv_heads}")
+    g = cfg.n_heads // cfg.n_kv_heads
+    q = q[:, rank * g * hl:(rank + 1) * g * hl].contiguous()
+    k = k[:, rank * hl:(rank + 1) * hl].contiguous()
+    v = v[:, rank * hl:(rank + 1) * hl].contiguous()
+    return bk.paged_decode(q, cache, k, v, positions, page_table, kv_len,
+                           cfg, base=scale_base)
+
+
+def tp_gather(out, mesh):
+    """Per-process head slices (B, H / tp, S, D) concatenated along heads
+    in rank order over the tp ``mesh``'s group: an all-gather, pure
+    concatenation, so every process holds the same full-head output."""
+    import torch.distributed as dist
+
+    tp = mesh.size()
+    local = out.transpose(0, 1).contiguous()  # heads first: rank order
+    full = torch.empty((tp * local.shape[0],) + tuple(local.shape[1:]),
+                       dtype=local.dtype, device=local.device)
+    dist.all_gather_into_tensor(full, local, group=mesh.get_group("tp"))
+    return full.transpose(0, 1)
+
+
+def _tp_paged_decode(bk, q, cache, k, v, positions, page_table, kv_len, cfg,
+                     scale_base):
+    """Paged attention over this process's head slice of the pool, inside
+    a tensor-parallel serving step (``launch/mesh.tp_scope``)."""
+    from repro_torch.launch.mesh import get_tp_scope
+
+    mesh = get_tp_scope()
+    if mesh is None:
+        raise ValueError(
+            f"a pool of {cache['v_pages'].shape[1]} kv heads (the config "
+            f"has {cfg.n_kv_heads}) outside a tensor-parallel serving step")
+    out, cache = tp_local_decode(bk, q, cache, k, v, positions, page_table,
+                                 kv_len, cfg, scale_base,
+                                 mesh.get_local_rank("tp"), mesh.size())
+    return tp_gather(out, mesh), cache
+
+
+def attn_strategy(cfg, model=None, training: bool = True) -> str:
+    """The attention split over a ``model`` axis of size ``model`` (the
+    reference's ``_attn_strategy``): ``heads`` when the kv heads divide
+    (everything head-local), ``qheads`` when only the q heads do (q heads
+    split, K and V whole), else ``kv_seq`` in training and ``q_seq`` in
+    inference (context parallelism, not ported: the train step runs such
+    attention on whole weights).  ``none`` without a ``model`` axis."""
+    if model is None:
+        return "none"
+    if cfg.n_kv_heads % model == 0:
+        return "heads"
+    if cfg.n_heads % model == 0:
+        return "qheads"
+    return "kv_seq" if training else "q_seq"
+
+
+def _project(p, x, cfg, split: bool = False):
+    """QKV projections (+ optional bias) into (B, heads, S, head_dim).
+
+    With ``split`` (training inside ``partitioning.model_split``): the
+    heads of this process.  ``wq`` (and ``wk``/``wv`` under ``heads``)
+    then hold this process's columns and the biases are sliced to them;
+    under ``qheads`` K and V are whole, and each local q head takes its
+    kv head's (the kv heads of the local q heads when the split follows
+    the groups, else one copy per q head)."""
+    dt, d = x.dtype, cfg.head_dim
     b, s, _ = x.shape
+    hq, hk = p["wq"].shape[1] // d, p["wk"].shape[1] // d
+    rank = P.split_rank()[0] if split else 0
+    q0 = rank * hq if hq < cfg.n_heads else 0
+    k0 = rank * hk if hk < cfg.n_kv_heads else 0
+    if split:
+        x = P.enter_split(x)
     q = x @ p["wq"].to(dt)
     k = x @ p["wk"].to(dt)
     v = x @ p["wv"].to(dt)
     if "bq" in p:
-        q, k, v = (q + p["bq"].to(dt), k + p["bk"].to(dt),
-                   v + p["bv"].to(dt))
-    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim).transpose(1, 2)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim).transpose(1, 2)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim).transpose(1, 2)
+        q = q + p["bq"][q0 * d:(q0 + hq) * d].to(dt)
+        k = k + p["bk"][k0 * d:(k0 + hk) * d].to(dt)
+        v = v + p["bv"][k0 * d:(k0 + hk) * d].to(dt)
+    q = q.reshape(b, s, hq, d).transpose(1, 2)
+    k = k.reshape(b, s, hk, d).transpose(1, 2)
+    v = v.reshape(b, s, hk, d).transpose(1, 2)
+    if hq < cfg.n_heads and hk == cfg.n_kv_heads:  # qheads
+        g = cfg.n_heads // cfg.n_kv_heads
+        if q0 % g == 0 and hq % g == 0:
+            k, v = k[:, q0 // g:(q0 + hq) // g], v[:, q0 // g:(q0 + hq) // g]
+        else:
+            idx = torch.arange(q0, q0 + hq, device=x.device) // g
+            k, v = k[:, idx], v[:, idx]
+    if split:
+        P.note_split("attn_q_heads", hq)
+        P.note_split("attn_kv_heads", k.shape[1])
     return q, k, v
 
 
@@ -87,7 +185,10 @@ def attention_block(p, x, cfg, *, positions, cache=None, cache_index=None,
     """
     bk = _resolve_backend(cfg, backend)
     b, s, _ = x.shape
-    q, k, v = _project(p, x, cfg)
+    # training inside ``model_split``: this process's heads
+    split = (cache is None and cross_kv is None
+             and P.split_here(p["wq"].shape[1], cfg.q_dim))
+    q, k, v = _project(p, x, cfg, split)
     if cross_kv is not None:
         k, v = cross_kv
         out = bk.prefill(q, k, v, cfg, causal=False)
@@ -98,9 +199,15 @@ def attention_block(p, x, cfg, *, positions, cache=None, cache_index=None,
         if page_table is not None and cache is not None:
             if kv_len is None:
                 raise ValueError("paged cache needs page_table and kv_len")
-            out, cache = bk.paged_decode(q, cache, k, v, positions,
-                                         page_table, kv_len, cfg,
-                                         base=scale_base)
+            if cache["v_pages"].shape[1] != cfg.n_kv_heads:
+                # a head-sharded pool slice: tensor-parallel serving
+                out, cache = _tp_paged_decode(bk, q, cache, k, v, positions,
+                                              page_table, kv_len, cfg,
+                                              scale_base)
+            else:
+                out, cache = bk.paged_decode(q, cache, k, v, positions,
+                                             page_table, kv_len, cfg,
+                                             base=scale_base)
         elif cache is not None and "v" not in cache:
             # a paged pool reached the contiguous path: fail loudly
             raise ValueError("paged cache needs page_table and kv_len")
@@ -116,5 +223,5 @@ def attention_block(p, x, cfg, *, positions, cache=None, cache_index=None,
                 out = bk.prefill(q, k, v, cfg, causal=causal,
                                  positions=positions,
                                  window=window or cfg.window)
-    out = out.transpose(1, 2).reshape(b, s, cfg.q_dim)
-    return out @ p["wo"].to(x.dtype), cache
+    out = out.transpose(1, 2).reshape(b, s, -1) @ p["wo"].to(x.dtype)
+    return (P.exit_split(out) if split else out), cache

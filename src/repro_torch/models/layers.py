@@ -94,19 +94,58 @@ def mlp_shapes(cfg) -> dict:
 
 def apply_mlp(p, x, cfg):
     """The gated MLP, (act(x W_gate) * x W_up) W_down with act silu or
-    (geglu) tanh-GELU, or the plain gelu(x W_in + b_in) W_out + b_out."""
+    (geglu) tanh-GELU, or the plain gelu(x W_in + b_in) W_out + b_out.
+
+    Inside ``partitioning.model_split`` with the hidden dim split, this
+    process holds the columns of W_gate/W_up/W_in and the rows of
+    W_down/W_out of its hidden units (``b_in`` is sliced to them): the
+    partial products are summed over ``model`` and ``b_out`` is added
+    once, after the sum."""
     dt = x.dtype
+    w_last = p["w_down"] if "w_gate" in p else p["w_out"]
+    split = P.split_here(w_last.shape[0], cfg.d_ff)
+    if split:
+        x = P.enter_split(x)
+        P.note_split("mlp_cols", w_last.shape[0])
     if "w_gate" in p:
         g = x @ p["w_gate"].to(dt)
         u = x @ p["w_up"].to(dt)
         act = F.silu(g) if cfg.act == "silu" else gelu(g)
-        return (act * u) @ p["w_down"].to(dt)
-    h = gelu(x @ p["w_in"].to(dt) + p["b_in"].to(dt))
-    return h @ p["w_out"].to(dt) + p["b_out"].to(dt)
+        out = (act * u) @ p["w_down"].to(dt)
+        return P.exit_split(out) if split else out
+    b_in = p["b_in"]
+    if split and w_last.shape[0] < cfg.d_ff:
+        f = w_last.shape[0]
+        b_in = b_in[P.split_rank()[0] * f:(P.split_rank()[0] + 1) * f]
+    h = gelu(x @ p["w_in"].to(dt) + b_in.to(dt))
+    out = h @ p["w_out"].to(dt)
+    return (P.exit_split(out) if split else out) + p["b_out"].to(dt)
+
+
+def _vocab_split(rows: int, cfg):
+    """(split, first row) of a vocabulary block of ``rows`` rows here:
+    inside ``model_split`` with the vocabulary split (or a split of size
+    1), this process holds rows ``[rank * rows, (rank + 1) * rows)``."""
+    if not P.split_here(rows, cfg.padded_vocab):
+        return False, 0
+    P.note_split("vocab_rows", rows)
+    return True, P.split_rank()[0] * rows
 
 
 def embed_lookup(p, tokens, cfg, dtype):
-    return p["tok"].to(dtype)[tokens.long()]
+    """Token embeddings (B, S, d).  Vocab-parallel inside
+    ``partitioning.model_split``: each process looks up the tokens of
+    its rows, zeros elsewhere, and the sum over ``model`` (one non-zero
+    term a token) is the embedding, exactly."""
+    tok = p["tok"].to(dtype)
+    split, v0 = _vocab_split(tok.shape[0], cfg)
+    if not split:
+        return tok[tokens.long()]
+    local = tokens.long() - v0
+    mine = (local >= 0) & (local < tok.shape[0])
+    e = tok[torch.clamp(local, 0, tok.shape[0] - 1)]
+    return P.exit_split(torch.where(mine[..., None], e,
+                                    torch.zeros_like(e)))
 
 
 def head_matrix(embed_params, cfg, dtype):
@@ -133,9 +172,21 @@ def chunked_cross_entropy(x, embed_params, labels, cfg, *, loss_mask=None,
     rows of a sharded batch: the count (and ``tokens``) is then the
     global batch's (summed over the batch axes), so that loss and ce
     summed over the batch axes are the global batch's.
+
+    Vocab-parallel inside ``partitioning.model_split`` with the
+    vocabulary split: this process's logits are those of its vocabulary
+    rows, and the maximum, the sum of exponentials and the target logit
+    are reduced over ``model``.  One formula serves both: unsplit, the
+    reductions are the identity.
     """
     b, s, _ = x.shape
     head = head_matrix(embed_params, cfg, x.dtype)
+    split, v0 = _vocab_split(head.shape[-1], cfg)
+    same = lambda t: t
+    red_max = P.model_max if split else same
+    red_sum = P.exit_split if split else same
+    if split:
+        x = P.enter_split(x)
     if loss_mask is None:
         loss_mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
     chunk = min(chunk, s)
@@ -143,18 +194,26 @@ def chunked_cross_entropy(x, embed_params, labels, cfg, *, loss_mask=None,
     bounds = [(i * chunk, (i + 1) * chunk) for i in range(n_chunks)]
     if s > n_chunks * chunk:
         bounds.append((n_chunks * chunk, s))
+    cols = v0 + torch.arange(head.shape[-1], device=x.device)
     pad_ok = None
-    if head.shape[-1] > cfg.vocab:  # mask vocab-padding columns
-        pad_ok = torch.arange(head.shape[-1], device=x.device) < cfg.vocab
+    if head.shape[-1] + v0 > cfg.vocab:  # mask vocab-padding columns
+        pad_ok = cols < cfg.vocab
     tot = ce_tot = cnt = 0.0
     for c0, c1 in bounds:
-        logits = (x[:, c0:c1] @ head).to(torch.float32)  # (B, c, V_pad)
+        logits = (x[:, c0:c1] @ head).to(torch.float32)  # (B, c, V_local)
         if pad_ok is not None:
             logits = torch.where(pad_ok, logits,
                                  torch.full_like(logits, -1e9))
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            labels[:, c0:c1, None].long())[..., 0]
+        # the maximum carries no gradient (the reference's logsumexp):
+        # the sum's gradient is then the softmax, split or not
+        m = red_max(logits.detach().amax(-1))
+        lse = m + torch.log(red_sum(torch.exp(logits - m[..., None])
+                                    .sum(-1)))
+        local = labels[:, c0:c1].long() - v0
+        mine = (local >= 0) & (local < head.shape[-1])
+        gold = torch.gather(logits, -1, torch.clamp(
+            local, 0, head.shape[-1] - 1)[..., None])[..., 0]
+        gold = red_sum(torch.where(mine, gold, torch.zeros_like(gold)))
         mc = loss_mask[:, c0:c1].to(torch.float32)
         ce = ((lse - gold) * mc).sum()
         tot = tot + (ce + (z_loss * lse**2 * mc).sum())

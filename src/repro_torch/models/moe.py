@@ -39,6 +39,17 @@ sum(density * its prob sums) / tokens``, whose sum over the batch axes
 is the global loss (and whose gradient is this process's share of it);
 the drop share is returned the same way.  Unsharded, the sums are the
 batch's own and the formula is the reference's.
+
+Inside ``sharding.partitioning.model_split`` with the experts split
+(the train step's ``tp`` profile), this process holds the expert stacks
+of its experts ``[rank * E_l, (rank + 1) * E_l)`` and the router whole:
+the routing and the dispatch are computed the same on every process,
+each process runs its experts and their part of the combine, and the
+parts are summed over ``model``.  The router's gradient reaches only
+the local experts' gates on each process, and the train step sums it
+over ``model``; the load-balancing loss, the same value everywhere,
+takes its gradient on the first process only, so the sum counts it
+once.
 """
 
 from __future__ import annotations
@@ -130,6 +141,11 @@ def apply_moe(p, x, cfg):
     b, s, d = x.shape
     e, ep, k = cfg.n_experts, cfg.padded_experts, cfg.experts_per_token
     dt = x.dtype
+    el = p["w_gate"].shape[0]  # experts held here
+    split = P.split_here(el, ep)
+    if split:
+        x = P.enter_split(x)
+        P.note_split("experts", el)
     t = b * s
     gt = group_size(t)
     g = t // gt
@@ -143,7 +159,10 @@ def apply_moe(p, x, cfg):
     count0 = P.batch_sum(
         F.one_hot(r.eidx[..., 0], ep).to(torch.float32).sum((0, 1)))
     n = count0.sum()
-    aux_loss = e * torch.sum(count0 / n * r.probs.sum((0, 1))) / n
+    probs = r.probs
+    if split and P.split_rank()[0] > 0:  # its gradient counted once
+        probs = probs.detach()
+    aux_loss = e * torch.sum(count0 / n * probs.sum((0, 1))) / n
     # per-slot drop share (each slot routes all tokens), over k
     kept = r.keep.sum((0, 1)).to(torch.float32)  # (k,)
     drop = torch.sum(t - kept) / n / k
@@ -161,11 +180,16 @@ def apply_moe(p, x, cfg):
     comb.scatter_(2, cell, keep * r.gates)
     disp = disp.reshape(g, gt, ep, cap)
     comb = comb.reshape(g, gt, ep, cap)
+    if split:  # this process's experts
+        e0 = P.split_rank()[0] * el if el < ep else 0
+        disp, comb = disp[:, :, e0:e0 + el], comb[:, :, e0:e0 + el]
 
     buf = torch.einsum("gtec,gtd->gecd", disp, xg)
     gate = torch.einsum("gecd,edf->gecf", buf, p["w_gate"].to(dt))
     up = torch.einsum("gecd,edf->gecf", buf, p["w_up"].to(dt))
     y = torch.einsum("gecf,efd->gecd", F.silu(gate) * up, p["w_down"].to(dt))
     out = torch.einsum("gtec,gecd->gtd", comb.to(dt), y)
+    if split:
+        out = P.exit_split(out)
     return out.reshape(b, s, d), {"moe_aux_loss": aux_loss,
                                   "moe_drop_frac": drop}

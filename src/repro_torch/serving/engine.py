@@ -32,8 +32,22 @@ weights, every layer on ``spec_backend``) keeps its own pools on the same
 page ids, forked with the target's on every COW fork; each decode tick
 drafts ``spec_k`` tokens per slot and verifies them in one target pass
 (serving/speculate.py), and ``Scheduler.resolve_spec`` settles the
-accepted prefix.  Tensor parallelism (``tp > 1``) is not ported and is
-refused by the constructor.
+accepted prefix.
+
+Tensor parallelism (``tp > 1``, serving/sharded.py): one engine a
+process on the first ``tp`` processes of an initialised
+``torch.distributed`` world (NCCL on the card, gloo on the CPU; one
+process a device), each holding ``1 / tp`` of the kv heads of every
+page and gathering the heads' attention outputs every layer
+(models/attention.py).  Rank 0 leads: it takes the submissions and
+cancellations and serves the caller; every other process calls
+``follow()``, which replays rank 0's control operations and runs each
+of its ticks with rank 0's clock reading, until rank 0 calls
+``close()``.  Every process plans its own tick, and the plans are
+compared every tick (``PlanMismatchError``); a failed tick is agreed
+across the processes before it is contained, so every process fails
+the same tick.  The streams, ``readbacks`` and ``ticks`` are the tp = 1
+engine's.  ``tp == 1`` takes none of this: ``mesh`` is None.
 
 Crash containment is the reference's: a failed tick finishes its
 in-flight requests with ``finish_reason="error"`` and counts in
@@ -55,7 +69,7 @@ from repro_torch.models.module import cast_params
 from repro_torch.models.registry import get_model_def
 from repro_torch.models.transformer import dtype_of, init_pools
 from repro_torch.serving import sampler as S
-from repro_torch.serving import speculate
+from repro_torch.serving import sharded, speculate
 from repro_torch.serving.faults import NO_FAULTS, FaultPlan
 from repro_torch.serving.kv_cache import PagedKVCache, pages_for
 from repro_torch.serving.request import (Request, RequestOutput, RequestState,
@@ -119,10 +133,14 @@ class ServeEngine:
                  spec_backend: Optional[str] = None, tp: int = 1,
                  max_queue: Optional[int] = None,
                  faults: Optional[FaultPlan] = None, device="cuda"):
-        if tp != 1:
-            raise NotImplementedError("tensor parallelism (tp > 1) is not "
-                                      "ported")
+        if tp < 1:
+            raise ValueError(f"tp must be >= 1, got {tp}")
         self.tp = tp
+        self.mesh = None
+        self._pool_pspecs = self._draft_pspecs = None
+        self._sync: Optional[sharded.TickSync] = None
+        self._now: Optional[float] = None  # the tick's clock (tp > 1)
+        self.tp_rank = 0  # this process's rank in the tp mesh
         if paged_impl is not None:
             cfg = cfg.replace(paged_impl=paged_impl)
         if prefill_impl is not None:
@@ -145,6 +163,8 @@ class ServeEngine:
         if mode not in ("sync", "overlap"):
             raise ValueError(f"mode must be 'sync' or 'overlap', got {mode!r}")
         self.device = resolve_device(device)
+        if tp > 1:
+            self.device = self._join_tp_mesh(tp, self.device)
         self.md, self.cfg = md, cfg
         self.params = cast_params(params, dtype_of(cfg), self.device)
         self.max_batch, self.max_len = max_batch, max_len
@@ -166,19 +186,37 @@ class ServeEngine:
             self.kv, max_batch=max_batch, max_len=max_len, seed=seed,
             prefix_sharing=prefix_sharing, prefill_slice=prefill_slice,
             prefill_bucket=chunk or PREFILL_BUCKET, spec_k=self.spec_k,
-            max_queue=max_queue)
-        self.caches = init_pools(
-            md.page_specs(cfg, n_pages, page_size, max_batch), self.device)
+            max_queue=max_queue,
+            **({} if tp == 1 else {"clock": self._clock}))
+        specs = md.page_specs(cfg, n_pages, page_size, max_batch)
         # speculative decoding: the drafter stack keeps its OWN pools on
         # the SAME page ids, so admission, COW forks and rollback are
         # planned once for both
         self.draft_caches = None
         self._draft_cfg = None
+        dspecs = None
         if self.spec_k:
             self._draft_cfg = speculate.draft_config(cfg)
-            self.draft_caches = init_pools(
-                md.page_specs(self._draft_cfg, n_pages, page_size,
-                              max_batch), self.device)
+            dspecs = md.page_specs(self._draft_cfg, n_pages, page_size,
+                                   max_batch)
+        if tp == 1:
+            self.caches = init_pools(specs, self.device)
+            if dspecs is not None:
+                self.draft_caches = init_pools(dspecs, self.device)
+        else:
+            # head divisibility is checked BEFORE any pool is allocated;
+            # every page holds 1/tp of its kv heads on this process
+            self._pool_pspecs = sharded.pool_partition_specs(specs, tp)
+            if dspecs is not None:
+                self._draft_pspecs = sharded.pool_partition_specs(dspecs,
+                                                                  tp)
+            self.caches = sharded.init_local_pools(specs, tp, self.device)
+            if dspecs is not None:
+                self.draft_caches = sharded.init_local_pools(dspecs, tp,
+                                                             self.device)
+            self._sync = sharded.TickSync(self.mesh)
+            self.tp_rank = self._sync.rank
+            self._sync.check_params(self.params)
         # on-device token state: the decode step's input tokens are the
         # previous step's output, never a host round-trip
         self._zero_tok = torch.zeros((max_batch,), dtype=torch.int32,
@@ -197,9 +235,17 @@ class ServeEngine:
     # scheduler delegation
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> int:
+        if self._sync is not None:  # rank 0 records it for the followers
+            self._leader_only("submit")
+            self._now = time.monotonic()
+            self._sync.ops.append(("submit", list(req.prompt), req.sampling,
+                                   req.rid, req.priority, self._now))
         return self.sched.submit(req)
 
     def cancel(self, rid: int) -> Optional[RequestOutput]:
+        if self._sync is not None:
+            self._leader_only("cancel")
+            self._sync.ops.append(("cancel", rid))
         return self.sched.cancel(rid)
 
     def schedule(self) -> List[Admission]:
@@ -259,6 +305,106 @@ class ServeEngine:
     def spec_acceptance(self) -> float:
         """spec_accepted / spec_proposed (0.0 before any speculation)."""
         return self.sched.spec_acceptance
+
+    # ------------------------------------------------------------------
+    # tensor parallelism: the mesh, and one plan on every process
+    # ------------------------------------------------------------------
+    def _join_tp_mesh(self, tp: int, device: torch.device) -> torch.device:
+        """Join the ``("tp",)`` mesh of the world's first ``tp`` processes;
+        returns this process's device."""
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_tp_mesh
+
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world < tp:
+            raise ValueError(
+                f"tp={tp} needs at least {tp} devices, one process each in "
+                f"an initialised torch.distributed group; the world has "
+                f"{world} (start the processes with torchrun)")
+        want = "nccl" if device.type == "cuda" else "gloo"
+        if dist.get_backend() != want:
+            raise ValueError(f"the process group runs {dist.get_backend()}, "
+                             f"device {device} needs {want}")
+        self.mesh = make_tp_mesh(tp)
+        if self.mesh is None:
+            raise ValueError(f"tp={tp}: process {dist.get_rank()} is outside "
+                             f"the mesh of the world's first {tp} processes")
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        return device
+
+    def _clock(self) -> float:
+        """The scheduler's clock under tp > 1: the reading rank 0 took for
+        this tick or submission."""
+        return time.monotonic() if self._now is None else self._now
+
+    def _leader_only(self, what: str) -> None:
+        if not self._sync.leader:
+            raise RuntimeError(
+                f"{what}: a tensor-parallel engine takes its requests on "
+                f"rank 0; tp rank {self._sync.rank} runs follow()")
+
+    def _tick_start(self, call: str) -> None:
+        """Advance the fault plan's clock and, but for a prefill tick,
+        consult ``tick.delay``.  Under tp > 1 rank 0 then reads the clock
+        and broadcasts the tick's inputs; the followers, which received
+        them in ``follow()``, draw nothing."""
+        self.faults.advance()
+        if self._sync is not None and not self._sync.leader:
+            return
+        delay = self._fault_delay() if call != "prefill" else 0.0
+        if self._sync is not None:
+            self._now = time.monotonic()
+            self._sync.send(call, self._now, delay)
+
+    def _check_plan(self, plan: TickPlan) -> None:
+        if self._sync is not None:
+            self._sync.check_plan(plan)
+
+    def _agree(self, err: Optional[BaseException]):
+        """The tick's failure, agreed across the tp processes (this
+        process's own at tp = 1)."""
+        return err if self._sync is None else self._sync.agree(err)
+
+    def _replay(self, ops) -> None:
+        """A follower: rank 0's submissions and cancellations, in order,
+        each at rank 0's clock reading."""
+        for op in ops:
+            if op[0] == "cancel":
+                self.sched.cancel(op[1])
+                continue
+            _, prompt, sampling, rid, priority, self._now = op
+            try:
+                self.sched.submit(Request(prompt=prompt, sampling=sampling,
+                                          rid=rid, priority=priority))
+            except ValueError:  # rank 0's submit raised the same
+                pass
+
+    def follow(self) -> List[RequestOutput]:
+        """Processes of tp rank > 0: run rank 0's ticks, each after its
+        control operations and at its clock, until rank 0 calls
+        ``close()``.  Returns the outputs of those ticks (rank 0's, event
+        for event)."""
+        if self._sync is None or self._sync.leader:
+            raise RuntimeError("follow() runs on tp ranks > 0 of a "
+                               "tensor-parallel engine")
+        calls = {"poll": self.poll, "step": self.step,
+                 "prefill": self._prefill_tick}
+        events: List[RequestOutput] = []
+        while True:
+            msg = self._sync.receive()
+            if msg.call == "stop":
+                return events
+            self._replay(msg.ops)
+            self._now = msg.clock
+            events.extend(calls[msg.call]())
+
+    def close(self) -> None:
+        """Rank 0 of a tensor-parallel engine: end the followers'
+        ``follow()``.  A no-op otherwise."""
+        if self._sync is not None and self._sync.leader:
+            self._sync.send("stop")
 
     # ------------------------------------------------------------------
     # the device step: one plain function per tick
@@ -330,6 +476,14 @@ class ServeEngine:
     def _dispatch(self, plan: TickPlan) -> _InFlight:
         """Enqueue one tick's device work; returns unread token handles."""
         self.faults.raise_if("step.error")  # chaos: the step dies
+        if self.mesh is None:
+            return self._dispatch_step(plan)
+        from repro_torch.launch.mesh import tp_scope
+
+        with tp_scope(self.mesh):  # attention gathers its heads
+            return self._dispatch_step(plan)
+
+    def _dispatch_step(self, plan: TickPlan) -> _InFlight:
         for src, dst in plan.forks:  # COW copies BEFORE any write
             self.caches = _copy_pool_page(self.caches, int(src), int(dst))
             if self.draft_caches is not None:  # same page ids: fork both
@@ -472,22 +626,30 @@ class ServeEngine:
 
     def _run_plan(self, plan: TickPlan) -> List[RequestOutput]:
         """Dispatch + read one plan, containing device failures."""
+        self._check_plan(plan)
+        err = inflight = None
         try:
             inflight = self._dispatch(plan)
         except Exception as e:
-            return self._fail_tick(e, self._plan_emits(plan))
+            err = e
+        err = self._agree(err)
+        if err is not None:
+            return self._fail_tick(err, self._plan_emits(plan))
         try:
-            return self._collect(inflight)
+            events = self._collect(inflight)
         except Exception as e:
-            return self._fail_tick(e, list(self._settling))
+            err = e
+        err = self._agree(err)
+        if err is not None:
+            return self._fail_tick(err, list(self._settling))
+        return events
 
     # ------------------------------------------------------------------
     # the engine loops
     # ------------------------------------------------------------------
     def step(self) -> List[RequestOutput]:
         """One SYNCHRONOUS engine tick: plan, dispatch, read."""
-        self.faults.advance()
-        self._fault_delay()
+        self._tick_start("step")
         plan = self.sched.plan_tick()
         events = self.sched.take_events()
         events.extend(self._run_plan(plan))
@@ -502,16 +664,21 @@ class ServeEngine:
         del admitted
         events: List[RequestOutput] = []
         while self.sched.has_prefilling:
-            self.faults.advance()
-            plan = self.sched.plan_tick(admit=False, decode=False)
-            events.extend(self.sched.take_events())
-            events.extend(self._run_plan(plan))
+            events.extend(self._prefill_tick())
         return events
 
-    def _fault_delay(self) -> None:
+    def _prefill_tick(self) -> List[RequestOutput]:
+        self._tick_start("prefill")
+        plan = self.sched.plan_tick(admit=False, decode=False)
+        events = self.sched.take_events()
+        events.extend(self._run_plan(plan))
+        return events
+
+    def _fault_delay(self) -> float:
         d = self.faults.delay("tick.delay")
         if d > 0:
             time.sleep(d)
+        return d
 
     def poll(self) -> List[RequestOutput]:
         """ONE engine iteration honoring ``mode``.  In overlap mode the
@@ -519,29 +686,38 @@ class ServeEngine:
         polling until ``has_pending`` clears to drain."""
         if self.mode == "sync":
             return self.step() if self.has_work else []
-        self.faults.advance()
-        self._fault_delay()
+        self._tick_start("poll")
         inflight = None
         events: List[RequestOutput] = []
         if self.has_work:
             plan = self.sched.plan_tick()
             events.extend(self.sched.take_events())
+            self._check_plan(plan)
+            err = None
             try:
                 inflight = self._dispatch(plan)
             except Exception as e:
-                events.extend(self._fail_tick(e, self._plan_emits(plan)))
+                err = e
+            err = self._agree(err)
+            if err is not None:
+                events.extend(self._fail_tick(err, self._plan_emits(plan)))
                 return events
         pending, self._pending = self._pending, None
         if pending is not None:
+            err = None
             try:
-                events.extend(self._collect(pending))
+                read = self._collect(pending)
             except Exception as e:
+                err = e
+            err = self._agree(err)
+            if err is not None:
                 unsettled = list(self._settling)
                 if inflight is not None:  # the new tick dies with the device
                     unsettled.extend(inflight.prefill_emit
                                      + inflight.decode_emit)
-                events.extend(self._fail_tick(e, unsettled))
+                events.extend(self._fail_tick(err, unsettled))
                 return events
+            events.extend(read)
         self._pending = (None if inflight is None or inflight.empty
                          else inflight)
         return events

@@ -23,6 +23,16 @@ the dimension major-to-minor in that order, the reference's block order.
 rows of a batch sharded over some mesh axes; ``batch_sum`` then sums a
 statistic over those axes (the loss's token count, the MoE routing
 sums), so that the loss is the global batch's and not a per-rank one.
+
+``model_split`` marks the code inside it as running this process's share
+of a compute split over the mesh's ``model`` axis (the reference's GSPMD
+split under the ``tp`` profile, Megatron style): the model code receives
+this process's blocks of the parameters the train step kept split (its
+heads, MLP columns, vocabulary rows, experts) and brackets each split
+region with ``enter_split`` (identity forward, the input gradient summed
+over ``model`` backward) and ``exit_split`` (the partial outputs summed
+over ``model`` forward, identity backward).  At a ``model`` of 1 both
+are the identity.
 """
 
 from __future__ import annotations
@@ -37,7 +47,9 @@ __all__ = [
     "PARAM_RULES", "SERVE_PARAM_RULES", "ACT_RULES", "CACHE_RULES",
     "resolve_spec", "tree_pspecs", "placements", "constrain",
     "set_parallelism_profile", "get_parallelism_profile", "axis_sizes",
-    "sharded_batch", "batch_sum", "in_sharded_batch",
+    "sharded_batch", "batch_sum", "in_sharded_batch", "model_split",
+    "split_rank", "split_here", "note_split", "enter_split", "exit_split",
+    "model_max", "SPLIT_SEEN",
 ]
 
 # Candidates may reference axes absent from the current mesh ("pod" on the
@@ -253,4 +265,110 @@ def batch_sum(t: torch.Tensor) -> torch.Tensor:
     out = t.detach().clone()
     for a in axes:
         dist.all_reduce(out, group=mesh.get_group(a))
+    return out
+
+
+# --- the compute split over ``model`` ----------------------------------
+
+_MODEL = None  # (group, rank, size) inside ``model_split``
+
+# what the split code last ran on, by region (the local heads, MLP
+# columns, vocabulary rows and experts): a record for tests and probes
+SPLIT_SEEN: dict = {}
+
+
+@contextlib.contextmanager
+def model_split(mesh, axis: str = "model"):
+    """Code inside runs this process's share of the compute split over
+    the mesh axis ``axis`` (see the module doc)."""
+    global _MODEL
+    size = axis_sizes(mesh)[axis]
+    group = mesh.get_group(axis) if size > 1 else None
+    prev, _MODEL = _MODEL, (group, mesh.get_local_rank(axis), size)
+    try:
+        yield
+    finally:
+        _MODEL = prev
+
+
+def split_rank() -> Optional[tuple]:
+    """(rank, size) along the split axis inside ``model_split``, else
+    None."""
+    return None if _MODEL is None else _MODEL[1:]
+
+
+def split_here(local: int, whole: int) -> bool:
+    """Whether a region whose parameter extent is ``local`` here and
+    ``whole`` in full runs split: inside ``model_split`` when the train
+    step kept the block split (``local < whole``), or at a split of size
+    1, where the split code runs on whole blocks with identity
+    collectives.  A block gathered whole (the resolver left the dim
+    unsharded) runs whole."""
+    if _MODEL is None:
+        return False
+    return _MODEL[2] == 1 or local < whole
+
+
+def note_split(region: str, n: int) -> None:
+    """Record that ``region`` ran on ``n`` local units (``SPLIT_SEEN``)."""
+    SPLIT_SEEN[region] = n
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _Exit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def enter_split(x: torch.Tensor) -> torch.Tensor:
+    """The entry of a split region: the identity; in the backward pass
+    the input's gradient, partial on each process, is summed over the
+    split axis.  The identity outside ``model_split`` or at size 1."""
+    if _MODEL is None or _MODEL[2] == 1:
+        return x
+    return _Enter.apply(x, _MODEL[0])
+
+
+def exit_split(x: torch.Tensor) -> torch.Tensor:
+    """The exit of a split region: the processes' partial outputs summed
+    over the split axis; the gradient passes through.  The identity
+    outside ``model_split`` or at size 1."""
+    if _MODEL is None or _MODEL[2] == 1:
+        return x
+    return _Exit.apply(x, _MODEL[0])
+
+
+def model_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum over the split axis of a detached copy
+    (``x`` itself, detached, outside ``model_split`` or at size 1)."""
+    x = x.detach()
+    if _MODEL is None or _MODEL[2] == 1:
+        return x
+    import torch.distributed as dist
+
+    out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_MODEL[0])
     return out

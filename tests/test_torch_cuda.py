@@ -1126,3 +1126,108 @@ def test_distributed_topk_decode_under_a_world_one_group(nccl_mesh):
     want, n_off = decode(cfg.replace(distributed_topk=False))
     assert n == n_off == 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("backend", ["camformer", "dense", "binary",
+                                     "hybrid"])
+def test_tp_rank_shares_equal_tp1_on_the_card(cuda, backend):
+    """Tensor-parallel serving's shares at smoke width (f32, 4 kv heads,
+    8-token pages) on the card: a 12-token prefill chunk (kernel 2b on
+    dense, binary and hybrid) and a decode row a slot (kernel 1 on
+    camformer and hybrid, kernel 2 on dense and binary), each run whole
+    and as each rank's ``tp_local_decode`` on its head slice of the pool,
+    at tp 2 and 4: the rank-order concatenation equals the whole output
+    bit for bit, each slice equals the whole pool's (the trash page
+    aside), and the ranks launch exactly tp times the whole call's
+    kernels."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.backend import get_backend
+    from repro_torch.models.attention import tp_local_decode
+    from repro_torch.models.transformer import init_pools, lm_page_specs
+    from repro_torch.serving import sharded
+
+    cfg = smoke_config("camformer-bert", attn_backend=backend)
+    bk = get_backend(backend)
+    hkv, h, d = cfg.n_kv_heads, cfg.n_heads, cfg.head_dim
+    gen = torch.Generator().manual_seed(3)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32,  # noqa: E731
+                                 device="cuda")
+    pools = init_pools(lm_page_specs(cfg, 9, 8, 2), "cuda")[0]
+    table = i32([[1, 2, 3, 4], [5, 6, 7, 8]])
+    base = i32([4, 0])
+    steps = [  # (S, positions, kv_len): the chunk, then a decode row
+        (12, i32([4, 0])[:, None] + torch.arange(12, dtype=torch.int32,
+                                                 device="cuda"),
+         i32([16, 0])),
+        (1, i32([[16], [0]]), i32([17, 1]))]
+    counted = lambda: (bdec.launches, pfd.launches)  # noqa: E731
+    for s, positions, kv_len in steps:
+        q = torch.randn((2, h, s, d), generator=gen).cuda()
+        k, v = (torch.randn((2, hkv, s, d), generator=gen).cuda()
+                for _ in range(2))
+        before = counted()
+        out, whole = bk.paged_decode(q, {n: t.clone() for n, t in
+                                         pools.items()}, k, v, positions,
+                                     table, kv_len, cfg, base=base)
+        torch.cuda.synchronize()
+        one = [a - b for a, b in zip(counted(), before)]
+        assert sum(one) == (1 if s == 1 or backend != "camformer" else 0)
+        for tp in (2, 4):
+            before, outs = counted(), []
+            for r in range(tp):
+                mine = sharded.slice_pools([pools], r, tp)[0]
+                o, mine = tp_local_decode(bk, q, mine, k, v, positions,
+                                          table, kv_len, cfg, base, r, tp)
+                want = sharded.slice_pools([whole], r, tp)[0]
+                for n in want:
+                    a, b = mine[n], want[n]
+                    if n.endswith("_pages"):  # page 0: the trash page
+                        a, b = a[1:], b[1:]
+                    assert torch.equal(a, b), (s, tp, r, n)
+                outs.append(o)
+            torch.cuda.synchronize()
+            assert [a - b for a, b in zip(counted(), before)] == [
+                tp * n for n in one]
+            assert torch.equal(torch.cat(outs, dim=1), out), (s, tp)
+        pools = whole
+
+
+def test_model_split_step_at_world_one_equals_unsharded(nccl_mesh):
+    """The ``model``-split train step on the (1, 1) NCCL mesh (tp
+    profile: the split code on whole blocks, identity collectives) of
+    granite smoke (8 padded experts, G = 4) on camformer with
+    ``use_kernel`` equals the unsharded step on the card: 3 steps' losses
+    within 1e-6, kernel 4 launched exactly as often (2 a layer a step),
+    and the split regions ran (every head, every expert, the whole
+    vocabulary)."""
+    from repro_torch.configs import SHAPES, smoke_config
+    from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.models import get_model_def
+    from repro_torch.sharding import partitioning as P
+    from repro_torch.train.data import SyntheticLMData
+
+    SHAPES["gpu_dist"] = dict(seq_len=64, global_batch=4, kind="train")
+    cfg = smoke_config("granite-moe-3b-a800m", n_experts_padded=8,
+                       attn_backend="camformer", use_kernel=True)
+    md = get_model_def(cfg)
+    runs = {}
+    for mesh in (None, nccl_mesh):
+        data = SyntheticLMData(cfg, "gpu_dist", seed=1, device="cuda",
+                               mesh=mesh)
+        step, opt = make_train_step(md, cfg, warmup=1, mesh=mesh)
+        state = init_state(cfg, opt, seed=0, device="cuda", mesh=mesh)
+        P.SPLIT_SEEN.clear()
+        before, losses = bmvm.launches, []
+        for i in range(3):
+            state, m = step(state, data.batch(i))
+            losses.append(float(m["loss"]))
+        runs[mesh is None] = (losses, bmvm.launches - before,
+                              dict(P.SPLIT_SEEN))
+    assert runs[True][2] == {}  # unsharded: no split region
+    assert runs[False][2] == dict(attn_q_heads=cfg.n_heads,
+                                  attn_kv_heads=cfg.n_kv_heads,
+                                  experts=cfg.padded_experts,
+                                  vocab_rows=cfg.padded_vocab)
+    assert runs[True][1] == runs[False][1] == 2 * cfg.n_layers * 3
+    np.testing.assert_allclose(runs[False][0], runs[True][0], rtol=1e-6,
+                               atol=0)

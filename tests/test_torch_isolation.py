@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch``, no example
-of the port (``examples/torch_*.py``) nor ``chip_smoke.py`` imports JAX
-or the reference package, nothing is built
+of the port (``examples/torch_*.py``), neither ``chip_smoke.py`` nor the
+multi-process test workers (``tests/torch_*_worker.py``) import JAX or
+the reference package, nothing is built
 when the port is imported, and the entry points run on the card unless
 the caller asks for the CPU."""
 
@@ -18,7 +19,8 @@ from repro_torch.configs import smoke_config
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
-    (ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
+    (ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"] + [
+    ROOT / "tests" / f"torch_{name}_worker.py" for name in ("dist", "tp")]
 
 
 def _imported_modules(path):

@@ -243,14 +243,21 @@ def test_single_readback_per_decode_tick():
 
 
 def test_tensor_parallel_raises_at_construction():
-    """tp > 1 is not ported: the constructor refuses it.  (Temperature
-    and spec_k > 0 are served; tests/test_torch_engine_sampling.py and
-    tests/test_torch_spec.py hold them against the reference.)"""
+    """The constructor validates ``tp`` as the reference's does: tp < 1
+    raises naming tp, and tp = 2 without an initialised group of at least
+    two processes raises naming the devices it needs; tp = 1 builds the
+    single-process engine (no mesh, no pool spec tree).  The tp > 1
+    engine itself is held on gloo processes in tests/test_torch_tp.py."""
     cfg = t_smoke("camformer-bert", attn_backend="camformer")
     from repro_torch.models import init_params
 
-    with pytest.raises(NotImplementedError):
-        TEngine(cfg, init_params(cfg, device="cpu"), tp=2, device="cpu")
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(ValueError, match="tp"):
+        TEngine(cfg, params, tp=0, device="cpu")
+    with pytest.raises(ValueError, match="devices"):
+        TEngine(cfg, params, tp=2, device="cpu")
+    eng = TEngine(cfg, params, tp=1, device="cpu")
+    assert eng.mesh is None and eng._pool_pspecs is None
 
 
 @pytest.mark.parametrize("k,p", [(0, 1.0), (5, 1.0), (0, 0.5), (3, 0.9),
