@@ -131,8 +131,13 @@ Phases, in order (each raises on failure; nothing is caught):
      phase 8's; (b) its step-4 checkpoint (written by process 0)
      restored through ``rescale_state`` onto the mesh, ``verify_rescale``
      true; (c) a B = 1 ``distributed_topk`` decode (512-token prompt, 8
-     steps) equal to the flag-off decode bit for bit; the group is
-     destroyed and the NCCL version printed;
+     steps) equal to the flag-off decode bit for bit; (d)
+     ``whisper-medium`` (2 + 2 layers), ``recurrentgemma-2b`` (one
+     period; both on ``camformer`` with ``use_kernel``) and ``rwkv6-3b``
+     (2 blocks) at full width, bf16, 2 steps each through the unsharded
+     step and through the sharded one (the split's code at model = 1):
+     the losses bit for bit equal, kernel 4 launched as often by both;
+     the group is destroyed and the NCCL version printed;
  13. tensor-parallel serving's shares, in one process (NCCL refuses two
      processes on one device, and a run gets one card): one layer of
      ``camformer-bert`` (on ``camformer``, ``dense``, ``binary``,
@@ -146,7 +151,22 @@ Phases, in order (each raises on failure; nothing is caught):
      trash page aside) and holds 1/tp of its bytes, kernels 1, 2 and 2b
      launch exactly tp times the tp = 1 call's, no plain version runs
      on the card; the per-rank pool bytes and the phase's seconds are
-     printed.
+     printed;
+ 14. the ``model`` split's shares of a training block, in one process
+     (share mode, ``partitioning.run_shares``: each rank's share in
+     turn, the collectives exchanged in process; no collective across
+     cards is measured): one full-width f32 block of ``whisper-medium``
+     (an encoder layer feeding a decoder layer, 2 x 1500 frames, 64
+     tokens) and ``recurrentgemma-2b`` (one period, 2 x 512) on
+     ``camformer`` with ``use_kernel`` and on ``dense``, and of
+     ``rwkv6-3b`` (one block, 2 x 256), forward and backward unsplit,
+     then as the shares at model = 2 and 4: outputs within 1e-5 of max
+     |out|, every gradient within 1e-4 (the split leaves' blocks, the
+     summed partial leaves), every kernel-4 launch bit-exact against its
+     plain version, exact kernel-4 launches (one an attention a rank),
+     no plain version on the card; the binarized Q/K signs that flip
+     against the unsplit run are counted and a share with a flip is run
+     again on the unsplit run's projections.
 
 Phase 3 also holds kernels 1, 2 (dense and binary) and 2b at granite's
 GQA width (8 kv heads, G = 3), and kernel 4 at the train step's shape
@@ -164,7 +184,8 @@ kernel and shape: the paged flash and contiguous stage-1 kernels have a
 second ``(sq>1)`` row for their prefill chunks, the paged flash kernel
 also a ``(binary)`` and a verify row, the BA-CAM matrix kernel a
 ``(train)`` row at the train step's shape and a row at each of phase
-10's five shapes and at llava's; ``path`` names the runs that
+10's five shapes, at llava's and at a phase-14 share of whisper's
+encoder; ``path`` names the runs that
 launch it); the last line
 is ``{"ok": true, "device":
 {...}}``.  Without a CUDA card, or without the rest of the repository
@@ -767,7 +788,11 @@ def contiguous_kernel_phase(flush):
     outputs = bh * s * s
     rows.append(dict(
         name="bacam_mvm", route="cuda",
-        path="contiguous: camformer-bert prefill",
+        path="contiguous: camformer-bert prefill; phase 12: whisper-medium "
+             "and recurrentgemma-2b through the unsharded and the sharded "
+             "step; phase 14: the unsplit blocks and the shares of "
+             "whisper-medium at m = 2 (and its decoder at m = 4) and of "
+             "recurrentgemma-2b",
         source="src/repro_torch/csrc/bacam_mvm.cu",
         replaces="src/repro/kernels/bacam_mvm.py:62", max_abs_err=0.0,
         ms=cuda_ms(lambda: bmvm.bacam_mvm(q, k, d=d), flush=flush),
@@ -2308,6 +2333,7 @@ WHISPER_DEC_ROW = "bacam_mvm (whisper decoder prefill)"
 WHISPER_XPRE_ROW = "bacam_mvm (whisper cross-attention prefill)"
 WHISPER_XDEC_ROW = "bacam_mvm (whisper cross-attention decode)"
 LLAVA_ROW = "bacam_mvm (llava prefill)"
+WHISPER_SHARE_ROW = "bacam_mvm (whisper encoder share, model 4)"
 # (B * H_kv, R, Skv, W) of kernel 4 there: recurrentgemma's prefill (MQA,
 # G = 10 rows of each position, head_dim 256); whisper's non-causal
 # encoder, its decoder's causal prefill, and its cross-attention to the
@@ -2321,7 +2347,9 @@ FAMILY_MVM_SHAPES = {
     WHISPER_XPRE_ROW: (WHISPER_B * 16, WHISPER_PROMPT, 1500, 2),
     WHISPER_XDEC_ROW: (WHISPER_B * 16, 1, 1500, 2),
     LLAVA_ROW: (VLM_B * 8, 4 * (VLM_PATCHES + VLM_TEXT),
-                VLM_PATCHES + VLM_TEXT, 4)}
+                VLM_PATCHES + VLM_TEXT, 4),
+    # phase 14: a rank's share of whisper's encoder at model = 4, B = 2
+    WHISPER_SHARE_ROW: (2 * 16 // 4, 1500, 1500, 2)}
 FAMILY_MVM_PATHS = {
     RG_ROW: "phase 10: recurrentgemma-2b camformer use_kernel prefill (one "
             "launch an attention layer)",
@@ -2335,7 +2363,10 @@ FAMILY_MVM_PATHS = {
                       "cross-attention at each decode step (one launch a "
                       "layer a step)",
     LLAVA_ROW: "phase 7: llava-next-mistral-7b camformer use_kernel "
-               "whole-prompt prefill (one launch a layer)"}
+               "whole-prompt prefill (one launch a layer)",
+    WHISPER_SHARE_ROW: "phase 14: each of the 4 ranks' share of a "
+                       "whisper-medium encoder layer (4 of 16 heads, "
+                       "B = 2), forward"}
 RG_CHECK_ROWS = 2016  # rows of shape (a) checked per plain-version call
 
 
@@ -3054,7 +3085,8 @@ def sharded_train_phase(mesh, smi):
         seen = dict(P.SPLIT_SEEN)
         assert seen == dict(attn_q_heads=cfg.n_heads,
                             attn_kv_heads=cfg.n_kv_heads, mlp_cols=cfg.d_ff,
-                            vocab_rows=cfg.padded_vocab), seen
+                            vocab_rows=cfg.padded_vocab,
+                            res_rows=TRAIN_S), seen
         losses = [r["loss"] for r in trainer.metrics_log]
         ref = TRAIN_LINES["camformer"]
         want = ref["losses"][:DIST_STEPS]
@@ -3137,6 +3169,74 @@ def distributed_decode_phase(mesh):
     return runs
 
 
+# phase 12's families: (arch, backend, depth overrides, B, tokens)
+DIST_FAMILIES = (("whisper-medium", "camformer",
+                  dict(enc_layers=2, n_layers=2), 2, 64),
+                 ("recurrentgemma-2b", "camformer", dict(n_layers=3), 2, 512),
+                 ("rwkv6-3b", "dense", dict(n_layers=2), 2, 256))
+DIST_FAMILY_STEPS = 2
+
+
+def sharded_families_phase(mesh):
+    """Phase 12 (d): whisper-medium (2 + 2 layers), recurrentgemma-2b (one
+    period) and rwkv6-3b (2 blocks) at full width in bf16 (f32 masters,
+    remat), DIST_FAMILY_STEPS steps through the unsharded step and
+    through the sharded step on the NCCL group of one (the ``model``
+    split's code on whole blocks, identity collectives): the losses bit
+    for bit equal, the split regions run on every head, rnn channel and
+    MLP column, kernel 4 launched exactly as often by both (2 an
+    attention layer a step on camformer), no plain version on the card.
+    Returns the launches."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.models import get_model_def
+    from repro_torch.sharding import partitioning as P
+    from repro_torch.train.data import SyntheticLMData
+
+    runs, lines = [], {}
+    for arch, backend, over, b, s in DIST_FAMILIES:
+        cfg = get_config(arch, attn_backend=backend,
+                         use_kernel=backend == "camformer", **over)
+        md = get_model_def(cfg)
+        SHAPES["phase12_family"] = dict(seq_len=s, global_batch=b,
+                                        kind="train")
+        got = {}
+        for m in (None, mesh):
+            data = SyntheticLMData(cfg, "phase12_family", seed=SEED,
+                                   device="cuda", mesh=m)
+            step, opt = make_train_step(md, cfg, warmup=1, mesh=m)
+            state = init_state(cfg, opt, seed=SEED, device="cuda", mesh=m)
+            P.SPLIT_SEEN.clear()
+            with plain_calls_on_card() as plain:
+                reset_launches()
+                losses = []
+                for i in range(DIST_FAMILY_STEPS):
+                    state, metrics = step(state, data.batch(i))
+                    losses.append(float(metrics["loss"]))
+                torch.cuda.synchronize()
+                launches = read_launches()
+            assert plain == {}, (arch, plain)
+            runs.append(launches)
+            got[m is None] = (losses, launches["bacam_mvm"],
+                              dict(P.SPLIT_SEEN))
+            del state
+            torch.cuda.empty_cache()
+        attn = (cfg.enc_layers + 2 * cfg.n_layers if arch == "whisper-medium"
+                else cfg.n_layers // 3 if arch == "recurrentgemma-2b" else 0)
+        want4 = 2 * attn * DIST_FAMILY_STEPS if backend == "camformer" else 0
+        assert got[True][1] == got[False][1] == want4, (arch, got)
+        assert all(math.isfinite(x) for x in got[True][0]), got
+        assert got[False][0] == got[True][0], \
+            (arch, "sharded losses differ from the unsharded step's", got)
+        assert got[True][2] == {} and got[False][2], got
+        lines[f"{arch}/{backend}"] = dict(
+            losses=got[False][0], unsharded_losses=got[True][0],
+            kernel4_launches=got[False][1], local_extents=got[False][2])
+    log(f"phase 12 sharded families, NCCL world of one, model = 1, bf16: "
+        f"{json.dumps(lines)}")
+    return runs
+
+
 def distribution_phase(smi):
     """Phase 12: a world-one NCCL group, the sharded train step with
     elastic restore, and the distributed CAM search under it."""
@@ -3147,6 +3247,7 @@ def distribution_phase(smi):
         backend = dist.get_backend()
         runs = [sharded_train_phase(mesh, smi)]
         distributed_decode_phase(mesh)  # its launches: logged, not rows
+        runs += sharded_families_phase(mesh)
     nccl = ".".join(map(str, torch.cuda.nccl.version()))
     log(f"phase 12: backend {backend}, NCCL {nccl}, "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3268,6 +3369,290 @@ def tp_share_phase(smi):
     log(f"phase 13 tp shares, one process, each rank's share = tp = 1 bit "
         f"for bit ({smi}): {json.dumps(lines)}")
     log(f"phase 13: {seconds:.1f} s")
+    return runs
+
+
+# phase 14: each rank's share of a split training block, in one process
+
+# (arch, backends, config overrides: the depth cut to one block, f32)
+SHARE_BLOCKS = (("whisper-medium", ("camformer", "dense"),
+                 dict(enc_layers=1, n_layers=1)),
+                ("recurrentgemma-2b", ("camformer", "dense"),
+                 dict(n_layers=3)),
+                ("rwkv6-3b", ("dense",), dict(n_layers=1)))
+SHARE_DEGREES = (2, 4)
+SHARE_B, SHARE_FRAMES, SHARE_TOKENS = 2, 1500, 64  # whisper
+SHARE_RG_S, SHARE_RWKV_S = 512, 256
+# kernel 4's launches of the unsplit block (m = 1) and of each degree's
+# shares: one an attention layer a rank (recurrentgemma at m = 4: 10 q
+# heads do not divide, every rank runs the whole attention, kv_seq)
+SHARE_LAUNCHES = {
+    ("whisper-medium", "camformer", 1): {"bacam_mvm": 3},
+    ("whisper-medium", "camformer", 2): {"bacam_mvm": 6},
+    ("whisper-medium", "camformer", 4): {"bacam_mvm": 8,
+                                         WHISPER_SHARE_ROW: 4},
+    ("recurrentgemma-2b", "camformer", 1): {"bacam_mvm": 1},
+    ("recurrentgemma-2b", "camformer", 2): {"bacam_mvm": 2},
+    ("recurrentgemma-2b", "camformer", 4): {"bacam_mvm": 4}}
+
+
+def share_block(arch, cfg):
+    """(block function of (params, *inputs) -> outputs, its inputs, the
+    names of the outputs) of one split training block of ``arch`` at
+    full width: whisper's encoder layer feeding its decoder layer as the
+    memory, recurrentgemma's (rec, rec, attn) period, rwkv6's block."""
+    from repro_torch.models import encdec, rglru, rwkv6
+    from repro_torch.models.transformer import arange_positions
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    d, b = cfg.d_model, SHARE_B
+    if arch == "whisper-medium":
+        pe = arange_positions(b, SHARE_FRAMES, "cuda")
+        pd = arange_positions(b, SHARE_TOKENS, "cuda")
+
+        def fn(p, feats, x):
+            mem = encdec._enc_block(p["enc_blocks"][0], feats, cfg, pe)
+            y, _ = encdec._dec_block(p["dec_blocks"][0], x, cfg, mem, None,
+                                     pd, None, None)
+            return mem, y
+
+        return fn, [randn(b, SHARE_FRAMES, d), randn(b, SHARE_TOKENS, d)], (
+            "encoder layer", "decoder layer")
+    if arch == "recurrentgemma-2b":
+        pos = arange_positions(b, SHARE_RG_S, "cuda")
+
+        def fn(p, x):
+            zero = lambda: {n: torch.zeros(shape, dtype=dt, device="cuda")
+                            for n, (shape, dt) in
+                            rglru._rec_state_spec(cfg, b).items()}
+            y, _ = rglru._period(p["rec1"][0], p["rec2"][0], p["attn"][0], x,
+                                 cfg, zero(), zero(), None, pos, None, None,
+                                 None, True)
+            return (y,)
+
+        return fn, [randn(b, SHARE_RG_S, d)], ("period",)
+    h, c = d // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+
+    def fn(p, x):
+        zero = lambda *shape: torch.zeros(shape, device="cuda")
+        return (rwkv6._apply_block(p["blocks"][0], x, cfg, zero(b, d),
+                                   zero(b, d), zero(b, h, c, c))[0],)
+
+    return fn, [randn(b, SHARE_RWKV_S, d)], ("block",)
+
+
+@contextlib.contextmanager
+def held_projections(cfg):
+    """On a backend that binarizes Q and K (camformer): record the
+    unsplit run's Q/K/V (``attention._project``) call by call; in a
+    share, compare the share's binarized Q and K with the unsplit run's
+    heads of that rank (a sign that differs is a flip: a GEMM over a
+    column slice, or a split region upstream, may round otherwise than
+    the unsplit code), and with ``hold`` set of (rank, call) substitute
+    the recorded values, the gradient still flowing into the share's own
+    projections.  Yields the state dict (no flip on other backends)."""
+    from repro_torch.models import attention
+    from repro_torch.sharding import partitioning as P
+
+    orig = attention._project
+    st = dict(whole=[], calls={}, flips={}, hold=set())
+    if cfg.backend != "camformer":
+        yield st
+        return
+
+    def project(p, x, cfg_, split=False, seq=False, cross_kv=None):
+        q, k, v = orig(p, x, cfg_, split, seq, cross_kv)
+        at = P.split_rank()
+        if at is None:
+            st["whole"].append((q.detach(), k.detach(), v.detach()))
+            return q, k, v
+        rank, _ = at
+        i = st["calls"][rank] = st["calls"].get(rank, -1) + 1
+        wq, wk, wv = st["whole"][i]
+        hq = q.shape[1]
+        q0 = rank * hq if hq < cfg_.n_heads else 0
+        hk = (cross_kv[0].shape[1] if cross_kv is not None
+              else p["wk"].shape[1] // cfg_.head_dim)
+        ref_q = wq[:, q0:q0 + hq]
+        if hk < cfg_.n_kv_heads:  # heads: this rank's kv heads
+            ref_k = wk[:, rank * hk:(rank + 1) * hk]
+        elif hq < cfg_.n_heads:  # qheads: the whole K, selected
+            ref_k, _ = attention.select_kv(wk, wv, q0, hq, cfg_)
+        else:  # attention whole on every rank
+            ref_k = wk
+        st["flips"][rank, i] = int(((q > 0) != (ref_q > 0)).sum()
+                                   + ((k > 0) != (ref_k > 0)).sum())
+        if (rank, i) in st["hold"]:
+            q = ref_q + (q - q.detach())
+            k = ref_k + (k - k.detach())
+        return q, k, v
+
+    attention._project = project
+    try:
+        yield st
+    finally:
+        attention._project = orig
+
+
+@contextlib.contextmanager
+def kernel4_held():
+    """Every launch of kernel 4 held against its plain version on the
+    same inputs (the plain version called directly, outside the count of
+    plain calls on the card); yields [launches checked, mismatches]."""
+    from repro_torch.kernels import bacam_mvm as bmvm
+
+    orig, plain = bmvm.bacam_mvm, bmvm.bacam_scores_ref
+    seen = [0, 0]
+
+    def checked(q, k, *, d, **kw):
+        out = orig(q, k, d=d, **kw)
+        seen[0] += 1
+        seen[1] += int(not torch.equal(out, plain(q, k, d)))
+        return out
+
+    bmvm.bacam_mvm = checked
+    try:
+        yield seen
+    finally:
+        bmvm.bacam_mvm = orig
+
+
+def share_run(fn, params, inputs, cot_seed, shares=None):
+    """(outputs, whole-leaf gradients by path, input gradients) of one
+    forward and backward of ``fn``: whole, or with ``shares`` = (dims, m)
+    as each rank's share in turn (``run_shares``; a ``"split"`` leaf's
+    block gradients land in the whole leaf, a ``"partial"`` leaf's parts
+    are summed there)."""
+    from repro_torch.launch.steps import share_params
+    from repro_torch.models.module import tree_map
+    from repro_torch.sharding import partitioning as P
+
+    live = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+    xs = [x.clone().requires_grad_() for x in inputs]
+    if shares is None:
+        outs = fn(live, *xs)
+    else:
+        dims, m = shares
+        outs = P.run_shares(lambda r: fn(share_params(live, dims, r, m),
+                                         *xs), m)[0]
+    gen = torch.Generator(device="cuda").manual_seed(cot_seed)
+    loss = sum((o * torch.randn(o.shape, generator=gen, device="cuda")).sum()
+               for o in outs)
+    loss.backward()
+    torch.cuda.synchronize()
+    return ([o.detach() for o in outs], tree_map(lambda t: t.grad, live),
+            [x.grad for x in xs])
+
+
+def share_errors(got, want, plan):
+    """Largest errors of a share run against the unsplit one: outputs
+    relative to max |out|, gradients relative to max(1, max |g|) of the
+    leaf, by the plan's kind (inputs apart; the leaves outside the block
+    have none)."""
+    from repro_torch.launch.steps import map_specs
+
+    errs = {"outputs": max(float((a - b).abs().max() / b.abs().max())
+                           for a, b in zip(got[0], want[0]))}
+    rel = lambda a, b: float((a - b).abs().max()) / max(
+        1.0, float(b.abs().max()))
+    for_kind = {}
+
+    def leaf(g, w, how):  # leaves outside the block have no gradient
+        assert (g is None) == (w is None), how
+        if w is not None:
+            for_kind.setdefault(how, []).append(rel(g, w))
+
+    map_specs(leaf, got[1], want[1], plan)
+    for how, e in for_kind.items():
+        errs[f"{how} grads"] = max(e)
+    errs["input grads"] = max(rel(a, b) for a, b in zip(got[2], want[2]))
+    return errs
+
+
+SHARE_TOL = {"outputs": 1e-5, "split grads": 1e-4, "partial grads": 1e-4,
+             "whole grads": 1e-4, "input grads": 1e-4}
+
+
+def share_phase(smi):
+    """Phase 14: for each block of SHARE_BLOCKS at full width (f32, the
+    depth cut to one block) and each backend, one forward and backward
+    unsplit, then at each degree of SHARE_DEGREES every rank's share in
+    turn in this process (``partitioning.run_shares``: no process group,
+    the collectives exchanged in process): the outputs within 1e-5 of
+    max |out| of the unsplit block's, every gradient within 1e-4 (the
+    ``"split"`` leaves' blocks and the summed ``"partial"`` leaves
+    against the whole's), each kernel-4 launch bit-exact against its
+    plain version, the binarized Q/K signs that flip against the unsplit
+    run's heads counted (a share with a flip is held on the recorded
+    projections and run again), exact kernel-4 launches and no plain
+    version on the card.  Returns the counting passes' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import model_shares
+    from repro_torch.models import get_model_def, init_params
+    from repro_torch.sharding import partitioning as P
+
+    t0 = time.perf_counter()
+    runs, lines = [], {}
+    for arch, backends, over in SHARE_BLOCKS:
+        for backend in backends:
+            cfg = get_config(arch, attn_backend=backend, dtype="float32",
+                             use_kernel=backend == "camformer", **over)
+            md = get_model_def(cfg)
+            params = init_params(cfg, device="cuda", seed=SEED)
+            fn, inputs, names = share_block(arch, cfg)
+            # kernel 4's checks call its plain version outside the count
+            with held_projections(cfg) as held, kernel4_held() as k4, \
+                    plain_calls_on_card() as plain:
+                reset_launches()
+                whole = share_run(fn, params, inputs, SEED)
+                one = read_launches(families=True)
+                runs.append(one)
+                assert ({n: c for n, c in one.items() if c}
+                        == SHARE_LAUNCHES.get((arch, backend, 1), {})), one
+                for m in SHARE_DEGREES:
+                    plan, dims = model_shares(md, cfg, m)
+                    held["calls"].clear()
+                    held["hold"].clear()
+                    held["flips"].clear()
+                    P.SPLIT_SEEN.clear()
+                    reset_launches()
+                    got = share_run(fn, params, inputs, SEED, (dims, m))
+                    launches = read_launches(families=True)
+                    runs.append(launches)
+                    assert ({n: c for n, c in launches.items() if c}
+                            == SHARE_LAUNCHES.get((arch, backend, m), {})), \
+                        (arch, backend, m, launches)
+                    seen = dict(P.SPLIT_SEEN)
+                    flips = dict(held["flips"])
+                    held_shares = sorted({r for (r, _), n in flips.items()
+                                          if n})
+                    if held_shares:  # again, flipped calls held
+                        held["hold"] = {key for key, n in flips.items() if n}
+                        held["calls"].clear()
+                        reset_launches()
+                        got = share_run(fn, params, inputs, SEED, (dims, m))
+                        assert read_launches(families=True) == launches
+                    errs = share_errors(got, whole, plan)
+                    bad = {k: e for k, e in errs.items()
+                           if not e <= SHARE_TOL[k]}
+                    assert not bad, (arch, backend, m, errs)
+                    lines[f"{arch}/{backend} m={m}"] = dict(
+                        errors=errs, local_extents=seen,
+                        flips=sum(flips.values()), held_ranks=held_shares,
+                        launches={n: c for n, c in launches.items() if c},
+                        unsplit_launches={n: c for n, c in one.items()
+                                          if c})
+                assert plain == {}, (arch, backend, plain)
+                assert k4[1] == 0, f"kernel 4 differs from its plain " \
+                                   f"version in {k4[1]} of {k4[0]} launches"
+                lines[f"{arch}/{backend} kernel 4 held"] = k4[0]
+            del params, whole, got
+            torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f"phase 14 model-split shares, one process, f32 full width "
+        f"({smi}): {json.dumps(lines)}")
+    log(f"phase 14: {seconds:.1f} s")
     return runs
 
 
@@ -3402,6 +3787,8 @@ def main():
     log(f"elapsed {time.perf_counter() - t0:.1f}s: distribution")
     runs += tp_share_phase(smi_line)
     log(f"elapsed {time.perf_counter() - t0:.1f}s: tp shares")
+    runs += share_phase(smi_line)
+    log(f"elapsed {time.perf_counter() - t0:.1f}s: model-split shares")
     for row in rows:  # launches over every path run
         row["launches"] = sum(run.get(row["name"], 0) for run in runs)
         if row["path"] != "none":

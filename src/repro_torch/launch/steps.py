@@ -40,6 +40,7 @@ from repro_torch.train.optimizer import (adamw, cosine_schedule,
                                          sharded_global_norm)
 
 __all__ = ["METRIC_KEYS", "make_value_and_grad", "make_train_step",
+           "model_split_plan", "model_shares", "share_params",
            "init_state", "make_prefill_step", "make_serve_step",
            "params_specs", "state_specs", "batch_specs", "cache_specs_trees",
            "cache_axes", "named", "batch_row_axes", "shard_tree",
@@ -120,67 +121,132 @@ def _accumulate(value_and_grad, params, batch, accum):
     return loss / accum, {}, gsum
 
 
-# the families whose loss runs through transformer.run_block with
-# attention_block and the MLP or MoE: the ``model``-axis compute split
-SPLIT_FAMILIES = ("dense", "moe", "vlm")
+# the families whose stack is models/transformer.lm_hidden: the ones
+# whose residual stream the ``tp`` profile splits along the sequence
+# (``res_seq``; the recurrent and encoder-decoder stacks keep ``"seq"``,
+# as in the reference)
+RES_SEQ_FAMILIES = ("dense", "moe", "vlm")
 
 
-def model_split_plan(cfg, params, mesh) -> dict:
+def model_split_plan(cfg, on_model, model: int, seq: bool = False) -> dict:
     """How the ``model``-split step treats each parameter, a tree in the
-    structure of ``params`` (DTensor blocks), for the ``tp`` profile on a
-    mesh with a ``model`` axis (``_sharded_step``):
+    structure of the parameters, for the ``tp`` profile on a mesh with a
+    ``model`` axis of size ``model`` (``_sharded_step``); ``on_model`` is
+    the tree of whether each leaf is split along ``model`` in storage
+    (its resolved spec), ``seq`` whether the residual stream splits
+    (``res_seq``):
 
       ``"split"``: kept split along ``model`` where the resolved spec put
           it; the model code runs on the local block (attention heads,
-          MLP columns and rows, vocabulary rows, experts) and its
-          gradient is the local block's;
+          MLP columns and rows, vocabulary rows, experts, RG-LRU
+          channels, RWKV-6 heads) and its gradient is the local block's;
       ``"partial"``: gathered whole, but used only inside a split region
-          (``wk``/``wv`` under ``qheads``, the attention biases of split
-          heads, the MLP's ``b_in``, the MoE router): each process's
-          gradient is its part, summed over ``model``;
+          or on this process's rows of the split stream (``wk``/``wv``
+          under ``qheads``, the attention biases of split heads, the
+          MLP's ``b_in``, the MoE router, the RG-LRU's per-channel
+          vectors, RWKV-6's shift mixes, decay and group-norm scale;
+          under ``seq`` the block norms, ``ln_f`` and ``b_out``): each
+          process's gradient is its part, summed over ``model``;
       ``"whole"``: gathered whole and used whole (norms, ``b_out``, a
           block the resolver left unsplit, attention whose heads do not
-          divide): each process's gradient is the whole one."""
+          divide, an RWKV-6 time mix the resolver would cut inside a
+          head): each process's gradient is the whole one."""
     from repro_torch.models.attention import attn_strategy
 
-    m = tuple(mesh.mesh_dim_names).index("model")
-    strategy = attn_strategy(cfg, P.axis_sizes(mesh)["model"])
-    on_model = lambda t: t.placements[m].is_shard()
+    strategy = attn_strategy(cfg, model)
 
     def module(mod, kind):
         if kind == "attn":  # heads follow wq; whole K/V serve the local q
-            heads = strategy in ("heads", "qheads") and on_model(mod["wq"])
-            hows = {k: ("whole" if not heads
+            heads = strategy in ("heads", "qheads") and mod["wq"]
+            return {k: ("whole" if not heads
                         else "split" if k in ("wq", "wo") or (
                             k in ("wk", "wv") and strategy == "heads"
-                            and on_model(t))
-                        else "partial") for k, t in mod.items()}
-        elif kind == "ffn" and "router" in mod:  # MoE: experts split
-            experts = on_model(mod["w_gate"])
-            hows = {k: ("whole" if not experts else
+                            and on)
+                        else "partial") for k, on in mod.items()}
+        if kind == "ffn" and "router" in mod:  # MoE: experts split
+            experts = mod["w_gate"]
+            return {k: ("whole" if not experts else
                         "partial" if k == "router" else "split")
                     for k in mod}
-        elif kind == "ffn":  # MLP: hidden units split
-            mlp = on_model(mod["w_down"] if "w_down" in mod
-                           else mod["w_out"])
-            hows = {k: ("whole" if not mlp or k == "b_out" else
-                        "partial" if k == "b_in" else "split")
+        if kind == "ffn":  # MLP: hidden units split
+            mlp = mod["w_down"] if "w_down" in mod else mod["w_out"]
+            return {k: ("partial" if k == "b_out" and seq
+                        else "whole" if not mlp or k == "b_out"
+                        else "partial" if k == "b_in" else "split")
                     for k in mod}
-        elif kind == "embed":  # vocabulary rows
-            hows = {k: "split" if on_model(t) else "whole"
-                    for k, t in mod.items()}
-        else:
-            hows = dict.fromkeys(mod, "whole")
-        return hows
+        if kind == "rec":  # RG-LRU: rnn channels split
+            return {k: ("whole" if not mod["w_x"] else
+                        "split" if on else "partial")
+                    for k, on in mod.items()}
+        if kind == "tm":  # RWKV-6 time mix: whole heads split
+            heads = mod["wr"] and (cfg.d_model // cfg.rwkv_head_dim) \
+                % model == 0
+            return {k: ("whole" if not heads else
+                        "split" if on else "partial")
+                    for k, on in mod.items()}
+        if kind == "cm":  # RWKV-6 channel mix: hidden units split
+            return {k: ("split" if mod["wk"] and k in ("wk", "wv")
+                        else "whole") for k in mod}
+        if kind == "embed":  # vocabulary rows
+            return {k: "split" if on else "whole" for k, on in mod.items()}
+        if seq and kind in ("ln1", "ln2", "ln_f"):  # on local rows
+            return dict.fromkeys(mod, "partial")
+        return dict.fromkeys(mod, "whole")
+
+    kinds = {"self_attn": "attn", "cross_attn": "attn", "mlp": "ffn"}
 
     def walk(node, kind=""):
         if isinstance(node, list):
             return [walk(v, kind) for v in node]
-        if all(not isinstance(v, (dict, list)) for v in node.values()):
-            return module(node, kind)
-        return {k: walk(v, k) for k, v in node.items()}
+        leaves = {k: v for k, v in node.items()
+                  if not isinstance(v, (dict, list))}
+        if kind.startswith(("rec", "tail_rec")):
+            kind = "rec"
+        hows = module(leaves, kinds.get(kind, kind)) if leaves else {}
+        return {k: hows[k] if k in hows else walk(v, k)
+                for k, v in node.items()}
 
-    return walk(params)
+    return walk(on_model)
+
+
+def _model_dim(spec):
+    """The dimension a spec splits along ``model`` (None: none)."""
+    for d, entry in enumerate(spec):
+        if entry == "model" or (isinstance(entry, tuple)
+                                and "model" in entry):
+            return d
+    return None
+
+
+def model_shares(md, cfg, model: int, seq: bool = False):
+    """(plan, dims) of the ``model`` split over a ``model`` axis of size
+    ``model`` (the ``tp`` profile's specs on a (1, model) mesh):
+    ``model_split_plan``'s tree and, for each leaf, the dimension its
+    ``"split"`` block is cut along (None for a leaf used whole), for
+    ``share_params``."""
+    from repro_torch.launch.mesh import MeshShape
+
+    _, specs = params_specs(md, cfg, MeshShape(("data", "model"),
+                                               (1, model)))
+    plan = model_split_plan(
+        cfg, map_specs(lambda sp: _model_dim(sp) is not None, specs), model,
+        seq)
+    return plan, map_specs(lambda sp, h: _model_dim(sp) if h == "split"
+                           else None, specs, plan)
+
+
+def share_params(params, dims, rank: int, size: int):
+    """Rank ``rank``'s parameters of a ``model`` split of ``size`` from
+    whole ones: each leaf's block along its dimension of ``dims``
+    (``model_shares``), a view, so a backward pass through the share
+    writes the block's gradient into the whole leaf's."""
+    def block(t, d):
+        if d is None:
+            return t
+        n = t.shape[d] // size
+        return t.narrow(d, rank * n, n)
+
+    return map_specs(block, params, dims)
 
 
 def _sharded_step(md, cfg, opt, value_and_grad, accum, mesh, row_axes):
@@ -189,9 +255,8 @@ def _sharded_step(md, cfg, opt, value_and_grad, accum, mesh, row_axes):
 
       1. every parameter is cast to the compute type and gathered over
          the mesh: whole, or, under the ``tp`` profile on a mesh with a
-         ``model`` axis for a family of ``SPLIT_FAMILIES``, over the
-         other axes only where ``model_split_plan`` keeps it split along
-         ``model``;
+         ``model`` axis, over the other axes only where
+         ``model_split_plan`` keeps it split along ``model``;
       2. ``value_and_grad`` runs on this process's rows inside
          ``sharded_batch``: its loss is this process's share of the
          global batch's (sums over the local rows divided by global
@@ -199,8 +264,13 @@ def _sharded_step(md, cfg, opt, value_and_grad, accum, mesh, row_axes):
          of the processes along ``row_axes`` sum to the global gradient.
          With the ``model`` split it runs inside ``model_split`` too:
          the processes along ``model`` run the same rows, each on its
-         blocks of the split regions (models/attention.py, layers.py,
-         moe.py), and compute the same loss;
+         blocks of the split regions (attention heads, cross-attention
+         included, MLP hidden units, vocabulary rows, experts, RG-LRU
+         channels, RWKV-6 heads: models/attention.py, layers.py,
+         moe.py, rglru.py, rwkv6.py), and compute the same loss; for a
+         family of ``RES_SEQ_FAMILIES`` whose P + S the ``model`` axis
+         divides, each also holds only its rows of the residual stream
+         between blocks (``res_seq``, models/transformer.lm_hidden);
       3. each gradient is summed over ``row_axes``, and over ``model``
          where it is a part (``"partial"`` leaves), and this process
          keeps its block (``Partial`` -> the parameter's placements: a
@@ -214,19 +284,22 @@ def _sharded_step(md, cfg, opt, value_and_grad, accum, mesh, row_axes):
       5. the metrics are summed over ``row_axes``: the global batch's
          (``tokens`` is already the global count).
 
-    The ``dp`` profile, and families outside ``SPLIT_FAMILIES``
-    (``encdec``/``audio``, ``hybrid``, ``ssm``), gather every parameter
-    whole: their compute splits over the batch axes only.  The
-    returned step's ``model_plan`` is the plan (None without the
-    split)."""
+    Attention whose heads do not divide ``model`` (``kv_seq``) runs whole
+    on every process, as the reference's does: no rule table there has
+    the ``att_kv_seq`` key its K/V constraint names, so its resolver
+    replicates them (``models/attention.attn_strategy``).  The ``dp``
+    profile gathers every parameter whole: its compute splits over the
+    batch axes only.  The returned step's ``model_plan`` is the plan of
+    the last step (None without the split)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
     dt = dtype_of(cfg)
     names = tuple(mesh.mesh_dim_names)
     coord = mesh.get_coordinate()
-    split = (P.get_parallelism_profile() == "tp" and "model" in names
-             and cfg.family in SPLIT_FAMILIES)
-    plan = None  # model_split_plan's tree, made at the first step
+    split = P.get_parallelism_profile() == "tp" and "model" in names
+    model = P.axis_sizes(mesh)["model"] if split else 1
+    on_model = lambda p: p.placements[names.index("model")].is_shard()
+    plans = {}  # model_split_plan's trees, by whether res_seq applies
 
     def counted(p):  # the first copy of a block replicated along a dim
         return all(c == 0 for c, pl in zip(coord, p.placements)
@@ -245,12 +318,18 @@ def _sharded_step(md, cfg, opt, value_and_grad, accum, mesh, row_axes):
         return g.redistribute(mesh, p.placements).to_local()
 
     def train_step(state, batch):
-        nonlocal plan
         params = state["params"]
-        if plan is None:
-            plan = (model_split_plan(cfg, params, mesh) if split
-                    else tree_map(lambda _: "whole", params))
-            train_step.model_plan = plan if split else None
+        length = batch["tokens"].shape[1] + (
+            batch["image_embeds"].shape[1] if "image_embeds" in batch
+            else 0)
+        seq = (split and cfg.family in RES_SEQ_FAMILIES
+               and (model == 1 or length % model == 0))
+        if seq not in plans:
+            plans[seq] = (model_split_plan(cfg, tree_map(on_model, params),
+                                           model, seq) if split
+                          else tree_map(lambda _: "whole", params))
+        plan = plans[seq]
+        train_step.model_plan = plan if split else None
         with torch.no_grad():
             full = tree_map(lambda p, h: p.to(dt).redistribute(
                 mesh, gathered(p, h)).to_local(), params, plan)

@@ -12,7 +12,7 @@ from repro_torch.models.layers import rope
 from repro_torch.sharding import partitioning as P
 
 __all__ = ["attn_shapes", "attn_cache_spec", "attention_block",
-           "tp_local_decode", "tp_gather", "attn_strategy"]
+           "tp_local_decode", "tp_gather", "attn_strategy", "select_kv"]
 
 
 def _resolve_backend(cfg, backend=None) -> AttentionBackend:
@@ -101,8 +101,16 @@ def attn_strategy(cfg, model=None, training: bool = True) -> str:
     reference's ``_attn_strategy``): ``heads`` when the kv heads divide
     (everything head-local), ``qheads`` when only the q heads do (q heads
     split, K and V whole), else ``kv_seq`` in training and ``q_seq`` in
-    inference (context parallelism, not ported: the train step runs such
-    attention on whole weights).  ``none`` without a ``model`` axis."""
+    inference.  ``none`` without a ``model`` axis.
+
+    Under ``kv_seq`` the reference's training attention constrains K and
+    V to ``("batch", None, "att_kv_seq", "head_dim")`` and Q to
+    ``("batch", None, None, "head_dim")``, but no rule table has an
+    ``att_kv_seq`` key, so its resolver leaves those dims unsharded and
+    the attention runs whole, replicated over ``model``: the train step
+    here runs it on whole weights too (``model_split_plan``'s
+    ``"whole"``).  ``q_seq`` belongs to the sharded serving steps, which
+    are not ported."""
     if model is None:
         return "none"
     if cfg.n_kv_heads % model == 0:
@@ -112,40 +120,53 @@ def attn_strategy(cfg, model=None, training: bool = True) -> str:
     return "kv_seq" if training else "q_seq"
 
 
-def _project(p, x, cfg, split: bool = False):
-    """QKV projections (+ optional bias) into (B, heads, S, head_dim).
+def select_kv(k, v, q0: int, hq: int, cfg):
+    """Under ``qheads`` (whole K and V, ``hq`` local q heads from q head
+    ``q0``): the kv heads of the local q heads when the split follows the
+    groups, else one copy of its kv head for each local q head."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    if q0 % g == 0 and hq % g == 0:
+        return k[:, q0 // g:(q0 + hq) // g], v[:, q0 // g:(q0 + hq) // g]
+    idx = torch.arange(q0, q0 + hq, device=k.device) // g
+    return k[:, idx], v[:, idx]
+
+
+def _project(p, x, cfg, split: bool = False, seq: bool = False,
+             cross_kv=None):
+    """QKV projections (+ optional bias) into (B, heads, S, head_dim);
+    with ``cross_kv`` (cross-attention) K and V are those given.
 
     With ``split`` (training inside ``partitioning.model_split``): the
     heads of this process.  ``wq`` (and ``wk``/``wv`` under ``heads``)
     then hold this process's columns and the biases are sliced to them;
     under ``qheads`` K and V are whole, and each local q head takes its
-    kv head's (the kv heads of the local q heads when the split follows
-    the groups, else one copy per q head)."""
+    kv head's (``select_kv``).  With ``seq`` x holds this process's rows
+    of the split residual stream and the region runs on the gathered
+    sequence (``partitioning.region_in``)."""
     dt, d = x.dtype, cfg.head_dim
-    b, s, _ = x.shape
-    hq, hk = p["wq"].shape[1] // d, p["wk"].shape[1] // d
+    hq = p["wq"].shape[1] // d
     rank = P.split_rank()[0] if split else 0
     q0 = rank * hq if hq < cfg.n_heads else 0
-    k0 = rank * hk if hk < cfg.n_kv_heads else 0
-    if split:
-        x = P.enter_split(x)
+    x = P.region_in(x, split, seq)
+    b, s, _ = x.shape
     q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
     if "bq" in p:
         q = q + p["bq"][q0 * d:(q0 + hq) * d].to(dt)
-        k = k + p["bk"][k0 * d:(k0 + hk) * d].to(dt)
-        v = v + p["bv"][k0 * d:(k0 + hk) * d].to(dt)
     q = q.reshape(b, s, hq, d).transpose(1, 2)
-    k = k.reshape(b, s, hk, d).transpose(1, 2)
-    v = v.reshape(b, s, hk, d).transpose(1, 2)
-    if hq < cfg.n_heads and hk == cfg.n_kv_heads:  # qheads
-        g = cfg.n_heads // cfg.n_kv_heads
-        if q0 % g == 0 and hq % g == 0:
-            k, v = k[:, q0 // g:(q0 + hq) // g], v[:, q0 // g:(q0 + hq) // g]
-        else:
-            idx = torch.arange(q0, q0 + hq, device=x.device) // g
-            k, v = k[:, idx], v[:, idx]
+    if cross_kv is None:
+        hk = p["wk"].shape[1] // d
+        k0 = rank * hk if hk < cfg.n_kv_heads else 0
+        k = x @ p["wk"].to(dt)
+        v = x @ p["wv"].to(dt)
+        if "bk" in p:
+            k = k + p["bk"][k0 * d:(k0 + hk) * d].to(dt)
+            v = v + p["bv"][k0 * d:(k0 + hk) * d].to(dt)
+        k = k.reshape(b, s, hk, d).transpose(1, 2)
+        v = v.reshape(b, s, hk, d).transpose(1, 2)
+    else:
+        k, v = cross_kv
+    if hq < cfg.n_heads and k.shape[1] == cfg.n_kv_heads:  # qheads
+        k, v = select_kv(k, v, q0, hq, cfg)
     if split:
         P.note_split("attn_q_heads", hq)
         P.note_split("attn_kv_heads", k.shape[1])
@@ -155,7 +176,7 @@ def _project(p, x, cfg, split: bool = False):
 def attention_block(p, x, cfg, *, positions, cache=None, cache_index=None,
                     kv_len=None, kv_positions=None, page_table=None,
                     scale_base=None, causal: bool = True, window=None,
-                    cross_kv=None, backend=None):
+                    cross_kv=None, backend=None, seq: bool = False):
     """Attention sub-block.  Returns (out (B, S, d_model), cache).
 
     x: (B, S, d_model); positions: (B, S).  Modes, as the reference's:
@@ -182,15 +203,22 @@ def attention_block(p, x, cfg, *, positions, cache=None, cache_index=None,
     ``causal`` and ``window`` (default ``cfg.window``) mask the fresh
     K/V of train and prefill; decode is causal.  Caches are updated in
     place.
+
+    Training inside ``partitioning.model_split`` runs this process's
+    heads (``_project``), cross-attention too (its K/V projected from
+    the memory with this process's ``wk``/``wv`` columns, models/
+    encdec.py), and sums the partial outputs over ``model``; with
+    ``seq`` (the decoder-only stack's ``res_seq``) x and the output are
+    this process's rows of the residual stream.
     """
     bk = _resolve_backend(cfg, backend)
-    b, s, _ = x.shape
     # training inside ``model_split``: this process's heads
-    split = (cache is None and cross_kv is None
-             and P.split_here(p["wq"].shape[1], cfg.q_dim))
-    q, k, v = _project(p, x, cfg, split)
+    split = cache is None and P.split_here(p["wq"].shape[1], cfg.q_dim)
+    if cache is None and not split and P.split_rank() is not None:
+        P.note_split("attn_whole_heads", cfg.n_heads)  # kv_seq: whole
+    q, k, v = _project(p, x, cfg, split, seq, cross_kv)
+    b, s = q.shape[0], q.shape[2]
     if cross_kv is not None:
-        k, v = cross_kv
         out = bk.prefill(q, k, v, cfg, causal=False)
     else:
         if cfg.use_rope:
@@ -224,4 +252,4 @@ def attention_block(p, x, cfg, *, positions, cache=None, cache_index=None,
                                  positions=positions,
                                  window=window or cfg.window)
     out = out.transpose(1, 2).reshape(b, s, -1) @ p["wo"].to(x.dtype)
-    return (P.exit_split(out) if split else out), cache
+    return P.region_out(out, split, seq), cache

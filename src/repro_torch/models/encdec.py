@@ -17,6 +17,13 @@ dicts (the reference stacks them, models/convert.py maps the two).
 Caches: ``{"self": [per-layer self-attention cache], "memory": (B,
 enc_len, d)}``, written in place.  Under autograd with ``cfg.remat ==
 "full"`` each block of the train path recomputes in the backward.
+
+Training inside ``sharding.partitioning.model_split`` (the ``tp``
+profile) splits the heads of the encoder's self-attention and of the
+decoder's self- and cross-attention, and the MLP's hidden units, over
+``model`` (models/attention.py, layers.py); the residual stream keeps
+whole rows (the reference constrains it to ``"seq"``, never
+``"res_seq"``).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from repro_torch.models.attention import (attention_block, attn_cache_spec,
 from repro_torch.models.transformer import (ModelDef, arange_positions,
                                             dtype_of, embed_shapes,
                                             last_logits, run_block)
+from repro_torch.sharding import partitioning as P
 
 __all__ = ["shapes", "encode", "cache_specs", "loss", "prefill", "decode",
            "make_model_def"]
@@ -74,13 +82,21 @@ def encode(params, features, cfg, *, train: bool = False):
 
 def _cross_kv(p, memory, cfg):
     """Cross-attention K/V (B, H_kv, S_enc, D) projected from the encoder
-    memory (no bias, as in the reference)."""
+    memory (no bias, as in the reference).
+
+    Inside ``partitioning.model_split`` with the heads split, the memory
+    enters the layer's split region here: this process projects it with
+    its ``wk``/``wv`` columns (its kv heads; all of them under
+    ``qheads``), and the memory's gradient, partial on each process, is
+    summed over ``model`` in every decoder layer, which the encoder's
+    gradients need whole."""
     dt = memory.dtype
     b, s, _ = memory.shape
-    k = (memory @ p["wk"].to(dt)).reshape(b, s, cfg.n_kv_heads,
-                                          cfg.head_dim)
-    v = (memory @ p["wv"].to(dt)).reshape(b, s, cfg.n_kv_heads,
-                                          cfg.head_dim)
+    if P.split_here(p["wq"].shape[1], cfg.q_dim):
+        memory = P.enter_split(memory)
+    hk = p["wk"].shape[1] // cfg.head_dim
+    k = (memory @ p["wk"].to(dt)).reshape(b, s, hk, cfg.head_dim)
+    v = (memory @ p["wv"].to(dt)).reshape(b, s, hk, cfg.head_dim)
     return k.transpose(1, 2), v.transpose(1, 2)
 
 

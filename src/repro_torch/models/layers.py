@@ -92,7 +92,7 @@ def mlp_shapes(cfg) -> dict:
             "b_out": ((d,), "zeros", (None,))}
 
 
-def apply_mlp(p, x, cfg):
+def apply_mlp(p, x, cfg, seq: bool = False):
     """The gated MLP, (act(x W_gate) * x W_up) W_down with act silu or
     (geglu) tanh-GELU, or the plain gelu(x W_in + b_in) W_out + b_out.
 
@@ -100,26 +100,26 @@ def apply_mlp(p, x, cfg):
     process holds the columns of W_gate/W_up/W_in and the rows of
     W_down/W_out of its hidden units (``b_in`` is sliced to them): the
     partial products are summed over ``model`` and ``b_out`` is added
-    once, after the sum."""
+    once, after the sum.  With ``seq`` x and the output are this
+    process's rows of the split residual stream (``res_seq``)."""
     dt = x.dtype
     w_last = p["w_down"] if "w_gate" in p else p["w_out"]
     split = P.split_here(w_last.shape[0], cfg.d_ff)
     if split:
-        x = P.enter_split(x)
         P.note_split("mlp_cols", w_last.shape[0])
+    x = P.region_in(x, split, seq)
     if "w_gate" in p:
         g = x @ p["w_gate"].to(dt)
         u = x @ p["w_up"].to(dt)
         act = F.silu(g) if cfg.act == "silu" else gelu(g)
-        out = (act * u) @ p["w_down"].to(dt)
-        return P.exit_split(out) if split else out
+        return P.region_out((act * u) @ p["w_down"].to(dt), split, seq)
     b_in = p["b_in"]
     if split and w_last.shape[0] < cfg.d_ff:
         f = w_last.shape[0]
         b_in = b_in[P.split_rank()[0] * f:(P.split_rank()[0] + 1) * f]
     h = gelu(x @ p["w_in"].to(dt) + b_in.to(dt))
-    out = h @ p["w_out"].to(dt)
-    return (P.exit_split(out) if split else out) + p["b_out"].to(dt)
+    out = P.region_out(h @ p["w_out"].to(dt), split, seq)
+    return out + p["b_out"].to(dt)
 
 
 def _vocab_split(rows: int, cfg):

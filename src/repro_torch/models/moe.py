@@ -134,18 +134,21 @@ def route(router, xg, cfg, cap: int) -> Routing:
     return Routing(probs, gates, eidx, pos, pos < cap)
 
 
-def apply_moe(p, x, cfg):
+def apply_moe(p, x, cfg, seq: bool = False):
     """x: (B, S, d) -> ((B, S, d), aux), aux = {"moe_aux_loss",
     "moe_drop_frac"} as float32 scalars (the Switch load-balancing loss
-    and the share of (token, slot) choices dropped)."""
-    b, s, d = x.shape
+    and the share of (token, slot) choices dropped).  With ``seq`` x and
+    the output are this process's rows of the split residual stream
+    (``res_seq``): the tokens route on the gathered sequence, as the
+    reference's ``constrain(xg, ("batch", None, "embed"))``."""
     e, ep, k = cfg.n_experts, cfg.padded_experts, cfg.experts_per_token
     dt = x.dtype
     el = p["w_gate"].shape[0]  # experts held here
     split = P.split_here(el, ep)
     if split:
-        x = P.enter_split(x)
         P.note_split("experts", el)
+    x = P.region_in(x, split, seq)
+    b, s, d = x.shape
     t = b * s
     gt = group_size(t)
     g = t // gt
@@ -189,7 +192,5 @@ def apply_moe(p, x, cfg):
     up = torch.einsum("gecd,edf->gecf", buf, p["w_up"].to(dt))
     y = torch.einsum("gecf,efd->gecd", F.silu(gate) * up, p["w_down"].to(dt))
     out = torch.einsum("gtec,gecd->gtd", comb.to(dt), y)
-    if split:
-        out = P.exit_split(out)
-    return out.reshape(b, s, d), {"moe_aux_loss": aux_loss,
-                                  "moe_drop_frac": drop}
+    return P.region_out(out.reshape(b, s, d), split, seq), {
+        "moe_aux_loss": aux_loss, "moe_drop_frac": drop}

@@ -19,6 +19,13 @@ sequential loop over time, in the order of the reference's ``lax.scan``.
 Under autograd with ``cfg.remat == "full"`` each period of the train
 path recomputes in the backward (the trailing layers do not, as in the
 reference).
+
+Training inside ``sharding.partitioning.model_split`` (the ``tp``
+profile) splits the RG-LRU's ``rnn`` channels (``_apply_rec``), the
+attention heads (``qheads`` for MQA when ``model`` divides the q heads;
+else ``kv_seq``: the attention runs whole, models/attention.py) and the
+GeGLU MLP's hidden units over ``model``; the residual stream keeps whole
+rows (the reference constrains it to ``"seq"``).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from repro_torch.models.attention import (attention_block, attn_cache_spec,
 from repro_torch.models.transformer import (ModelDef, arange_positions,
                                             dtype_of, embed_shapes,
                                             last_logits, run_block)
+from repro_torch.sharding import partitioning as P
 
 __all__ = ["RG_C", "shapes", "cache_specs", "loss", "prefill", "decode",
            "make_model_def"]
@@ -105,22 +113,51 @@ def _rg_lru(a, drive, h):
 
 def _apply_rec(p, x, cfg, state):
     """One Griffin recurrent block (+ MLP).  state: {"conv": (B, W-1, r),
-    "h": (B, r)}, float32.  Returns (x, new conv state, new h)."""
+    "h": (B, r)}, float32.  Returns (x, new conv state, new h).
+
+    Inside ``partitioning.model_split`` with the ``rnn`` channels split,
+    this process runs its r / m channels: ``w_gate``/``w_x`` columns,
+    ``conv_w`` channels, the loop over time (per channel, no
+    communication) and ``w_out`` rows, whose partial products are summed
+    over ``model``; the per-channel vectors (``conv_b``, the gate biases,
+    ``lam``) and the state are sliced to the local channels.  ``w_rg``
+    and ``w_ig`` hold rows here (the resolver gives ``model`` to the
+    first ``rnn`` of their ``("rnn", "rnn")`` axes), so the local
+    channels of u times the local rows are a partial sum of every gate
+    channel: the two products, stacked, are reduce-scattered over the
+    channels, each process keeping the sum's local channels.  That is
+    the all-reduce of the partial products with only the needed quarter
+    kept, (m - 1) / m of B x S x 2r elements a process, the volume of an
+    all-gather of u; the all-gather would also need the matrices'
+    columns, which no process holds without gathering both (r, r)
+    matrices whole every step."""
     dt = x.dtype
     f32 = torch.float32
+    rl = p["w_x"].shape[1]  # the rnn channels run here
+    split = P.split_here(rl, cfg.rnn_width)
+    c0 = P.split_rank()[0] * rl if split and rl < cfg.rnn_width else 0
+    here = lambda t: t[..., c0:c0 + rl]  # a whole vector's local channels
     h_in = L.apply_norm(p["ln"], x, cfg)
+    if split:
+        P.note_split("rnn", rl)
+        h_in = P.enter_split(h_in)
     gate = L.gelu(h_in @ p["w_gate"].to(dt))
     u = h_in @ p["w_x"].to(dt)
-    u, conv_state = _causal_conv(u, state["conv"], p["conv_w"], p["conv_b"])
-    r_g = torch.sigmoid(u @ p["w_rg"].to(dt) + p["b_rg"].to(dt))
-    i_g = torch.sigmoid(u @ p["w_ig"].to(dt) + p["b_ig"].to(dt))
-    lam = p["lam"].to(f32)
+    u, conv_state = _causal_conv(u, here(state["conv"]), p["conv_w"],
+                                 here(p["conv_b"]))
+    rg, ig = u @ p["w_rg"].to(dt), u @ p["w_ig"].to(dt)
+    if split:
+        rg, ig = P.reduce_scatter(torch.stack([rg, ig], 2), 3).unbind(2)
+    r_g = torch.sigmoid(rg + here(p["b_rg"]).to(dt))
+    i_g = torch.sigmoid(ig + here(p["b_ig"]).to(dt))
+    lam = here(p["lam"]).to(f32)
     softplus = torch.logaddexp(lam, torch.zeros_like(lam))
     a = torch.exp(-RG_C * softplus * r_g.to(f32))
     drive = torch.sqrt(torch.clamp(1.0 - a**2, min=1e-12)) * \
         (i_g * u).to(f32)
-    ys, h_last = _rg_lru(a, drive, state["h"].to(f32))
-    x = x + (gate * ys.to(dt)) @ p["w_out"].to(dt)
+    ys, h_last = _rg_lru(a, drive, here(state["h"]).to(f32))
+    out = (gate * ys.to(dt)) @ p["w_out"].to(dt)
+    x = x + (P.exit_split(out) if split else out)
     x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["ln_mlp"], x, cfg), cfg)
     return x, conv_state, h_last
 

@@ -19,6 +19,12 @@ float32, the same values.  The WKV recurrence runs in float32 as a
 sequential loop over time, in the order of the reference's ``lax.scan``.
 Under autograd with ``cfg.remat == "full"`` each block of the train path
 recomputes in the backward.
+
+Training inside ``sharding.partitioning.model_split`` (the ``tp``
+profile) splits the time mix by whole heads and the channel mix by
+hidden units over ``model`` (``_time_mix``, ``_channel_mix``); the
+residual stream keeps whole rows (the reference constrains it to
+``"seq"``).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.transformer import (ModelDef, dtype_of,
                                             embed_shapes, last_logits,
                                             run_block)
+from repro_torch.sharding import partitioning as P
 
 __all__ = ["LORA", "shapes", "cache_specs", "loss", "prefill", "decode",
            "make_model_def"]
@@ -97,9 +104,26 @@ def _wkv(r, k, v, w, u, state):
 
 def _time_mix(p, x, cfg, x_prev, state):
     """x: (B, S, d); x_prev: (B, d); state: (B, H, c, c).  Returns (out,
-    the new x_prev (B, d) in x's dtype, the new state float32)."""
+    the new x_prev (B, d) in x's dtype, the new state float32).
+
+    Inside ``partitioning.model_split`` with the heads split (whole
+    heads: ``model_split_plan`` gathers the block whole where the
+    resolver would cut inside a head), this process runs its H / m
+    heads: ``wr``/``wk``/``wv``/``wg`` columns and ``u``'s rows, the WKV
+    loop and the group norm (both head-local), the decay's LoRA and
+    ``w0`` and ``ln_x`` sliced to the local channels, and ``wo`` rows,
+    whose partial products are summed over ``model``."""
     b, s, d = x.shape
-    h, c = _heads(cfg), cfg.rwkv_head_dim
+    c = cfg.rwkv_head_dim
+    dl = p["wr"].shape[1]  # the channels (whole heads) run here
+    split = P.split_here(dl, d)
+    c0 = P.split_rank()[0] * dl if split and dl < d else 0
+    h = dl // c
+    if split:
+        P.note_split("tm_heads", h)
+        x = P.enter_split(x)
+    elif P.split_rank() is not None:  # a head the resolver would cut
+        P.note_split("tm_whole_heads", h)
     dt = x.dtype
     f32 = torch.float32
     xs = _shift(x, x_prev)
@@ -109,24 +133,34 @@ def _time_mix(p, x, cfg, x_prev, state):
     v = (xv @ p["wv"].to(dt)).reshape(b, s, h, c)
     g = F.silu(xg @ p["wg"].to(dt))
     # the data-dependent decay (the Finch contribution): exp(-exp(..))
-    dw = (xw @ p["w_lora_a"].to(dt)) @ p["w_lora_b"].to(dt)
-    w = torch.exp(-torch.exp(p["w0"].to(f32) + dw.to(f32)))
+    dw = (xw @ p["w_lora_a"].to(dt)) @ p["w_lora_b"][:, c0:c0 + dl].to(dt)
+    w = torch.exp(-torch.exp(p["w0"][c0:c0 + dl].to(f32) + dw.to(f32)))
     y, state = _wkv(r.to(f32), k.to(f32), v.to(f32), w.reshape(b, s, h, c),
-                    p["u"].to(f32), state.to(f32))
+                    p["u"].to(f32), state[:, c0 // c:c0 // c + h].to(f32))
     # per-head group norm
     y = y * torch.rsqrt((y**2).mean(dim=-1, keepdim=True) + 1e-6)
-    y = (y.reshape(b, s, d) * p["ln_x"].to(f32)).to(dt)
-    return (y * g) @ p["wo"].to(dt), x[:, -1], state
+    y = (y.reshape(b, s, dl) * p["ln_x"][c0:c0 + dl].to(f32)).to(dt)
+    out = (y * g) @ p["wo"].to(dt)
+    return (P.exit_split(out) if split else out), x[:, -1], state
 
 
 def _channel_mix(p, x, cfg, x_prev):
+    """Inside ``partitioning.model_split`` with the hidden units split:
+    ``wk`` columns and ``wv`` rows here, the partial products summed
+    over ``model``; the receptance (``wr``, whole) runs on every
+    process."""
     dt = x.dtype
     xs = _shift(x, x_prev)
     xk = x + (xs - x) * p["mu"][0].to(dt)
     xr = x + (xs - x) * p["mu"][1].to(dt)
+    split = P.split_here(p["wk"].shape[1], cfg.d_ff)
+    if split:
+        P.note_split("cm_cols", p["wk"].shape[1])
+        xk = P.enter_split(xk)
     k = torch.square(torch.relu(xk @ p["wk"].to(dt)))
+    kv = k @ p["wv"].to(dt)
     r = torch.sigmoid(xr @ p["wr"].to(dt))
-    return r * (k @ p["wv"].to(dt)), x[:, -1]
+    return r * (P.exit_split(kv) if split else kv), x[:, -1]
 
 
 def _apply_block(p, x, cfg, tm_prev, cm_prev, wkv):

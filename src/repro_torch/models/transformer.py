@@ -26,6 +26,7 @@ from repro_torch.core.backend import backends_for
 from repro_torch.models import layers as L
 from repro_torch.models.attention import attention_block, attn_shapes
 from repro_torch.models.moe import apply_moe, moe_shapes
+from repro_torch.sharding import partitioning as P
 
 __all__ = ["ModelDef", "make_model_def", "dtype_of", "block_shapes",
            "arange_positions", "run_block",
@@ -139,19 +140,23 @@ def make_model_def() -> ModelDef:
 
 
 def _apply_block(p, x, cfg, *, positions, cache, cache_index, kv_len,
-                 page_table, scale_base, backend):
+                 page_table, scale_base, backend, seq=False):
     """One block; returns (x, cache, aux) with aux the MoE FFN's
-    {moe_aux_loss, moe_drop_frac} (empty for a dense FFN)."""
+    {moe_aux_loss, moe_drop_frac} (empty for a dense FFN).  With ``seq``
+    x holds this process's rows of the split residual stream
+    (``res_seq``): the norms and residual adds run on them, each region
+    on the gathered sequence."""
     h, cache = attention_block(
         p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg, positions=positions,
         cache=cache, cache_index=cache_index, kv_len=kv_len,
-        page_table=page_table, scale_base=scale_base, backend=backend)
+        page_table=page_table, scale_base=scale_base, backend=backend,
+        seq=seq)
     x = x + h
     ff_in = L.apply_norm(p["ln2"], x, cfg)
     if cfg.n_experts:
-        ff, aux = apply_moe(p["ffn"], ff_in, cfg)
+        ff, aux = apply_moe(p["ffn"], ff_in, cfg, seq=seq)
     else:
-        ff, aux = L.apply_mlp(p["ffn"], ff_in, cfg), {}
+        ff, aux = L.apply_mlp(p["ffn"], ff_in, cfg, seq=seq), {}
     return x + ff, cache, aux
 
 
@@ -164,8 +169,10 @@ def arange_positions(b, s, device):
 def run_block(block, cfg, train, *args, **kw):
     """``block(*args, **kw)``; on the train path under autograd with
     ``cfg.remat == "full"``, in ``torch.utils.checkpoint``, so that its
-    activations are recomputed in the backward pass."""
-    if train and cfg.remat == "full" and torch.is_grad_enabled():
+    activations are recomputed in the backward pass (not in a share of
+    ``partitioning.run_shares``, whose state is gone by the backward)."""
+    if (train and cfg.remat == "full" and torch.is_grad_enabled()
+            and not P.in_shares()):
         return checkpoint(block, *args, use_reentrant=False, **kw)
     return block(*args, **kw)
 
@@ -181,7 +188,14 @@ def lm_hidden(params, tokens, cfg, *, positions=None, caches=None,
     prepended to the token embeddings; ``positions`` defaults to
     arange(P + S) for every row.  aux holds the per-layer means of the
     MoE FFN's ``moe_aux_loss`` and ``moe_drop_frac`` (float32 scalars, 0
-    for a dense stack)."""
+    for a dense stack).
+
+    Training inside ``partitioning.model_split`` (the ``tp`` profile)
+    splits the residual stream's sequence (``res_seq``, the reference's
+    ``constrain(x, ("batch", "res_seq", "embed"))``) when the ``model``
+    axis divides P + S: between blocks each process holds its (P + S) /
+    m rows, and the final hidden states are all-gathered whole for the
+    loss, as the reference hands it a sequence-replicated copy."""
     dt = dtype_of(cfg)
     x = L.embed_lookup(params["embed"], tokens, cfg, dt)
     if prefix_embeds is not None:
@@ -190,6 +204,10 @@ def lm_hidden(params, tokens, cfg, *, positions=None, caches=None,
         positions = arange_positions(*x.shape[:2], tokens.device)
     if cfg.abs_pos == "sinusoidal" or not cfg.use_rope:
         x = x + L.sinusoidal_positions(positions, cfg.d_model).to(dt)
+    seq = caches is None and P.seq_split_here(x.shape[1])
+    if seq:
+        x = P.local_seq(x)
+        P.note_split("res_rows", x.shape[1])
     aux_sum = torch.zeros(2, dtype=torch.float32, device=x.device)
     for i, bk in enumerate(backends_for(cfg)):
         block_args = (params["blocks"][i], x, cfg)
@@ -197,7 +215,7 @@ def lm_hidden(params, tokens, cfg, *, positions=None, caches=None,
                         cache=None if caches is None else caches[i],
                         cache_index=cache_index, kv_len=kv_len,
                         page_table=page_table, scale_base=scale_base,
-                        backend=bk)
+                        backend=bk, seq=seq)
         # the train path (no caches) recomputes each block in the backward
         x, cache, aux = run_block(_apply_block, cfg, caches is None,
                                   *block_args, **block_kw)
@@ -208,7 +226,8 @@ def lm_hidden(params, tokens, cfg, *, positions=None, caches=None,
                                              aux["moe_drop_frac"]])
     aux_mean = aux_sum / cfg.n_layers
     aux = {"moe_aux_loss": aux_mean[0], "moe_drop_frac": aux_mean[1]}
-    return L.apply_norm(params["ln_f"], x, cfg), caches, aux
+    x = L.apply_norm(params["ln_f"], x, cfg)
+    return (P.whole_seq(x) if seq else x), caches, aux
 
 
 def lm_loss(params, batch, cfg):

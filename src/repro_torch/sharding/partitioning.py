@@ -28,17 +28,46 @@ sums), so that the loss is the global batch's and not a per-rank one.
 of a compute split over the mesh's ``model`` axis (the reference's GSPMD
 split under the ``tp`` profile, Megatron style): the model code receives
 this process's blocks of the parameters the train step kept split (its
-heads, MLP columns, vocabulary rows, experts) and brackets each split
+heads, MLP columns, vocabulary rows, experts, RG-LRU channels, RWKV-6
+heads) and brackets each split
 region with ``enter_split`` (identity forward, the input gradient summed
 over ``model`` backward) and ``exit_split`` (the partial outputs summed
 over ``model`` forward, identity backward).  At a ``model`` of 1 both
 are the identity.
+
+The residual stream's sequence split (``res_seq``, Megatron sequence
+parallelism) adds four sequence collectives over ``model``, two inverse
+pairs: a split region holding this process's rows of the stream enters
+through ``gather_seq`` (all-gather forward, reduce-scatter backward) and
+leaves through ``scatter_seq`` (reduce-scatter forward, all-gather
+backward); a replicated consumer takes the whole sequence through
+``whole_seq`` (all-gather forward, this process's rows of the gradient
+backward) and a replicated producer hands the stream its rows through
+``local_seq`` (this process's rows forward, all-gather backward).
+``region_in`` / ``region_out`` pick the entry and exit of a region from
+whether it is split and whether the stream is.  ``reduce_scatter``
+keeps this process's block of the sum along any dimension (the RG-LRU
+gates, models/rglru.py).
+
+Share mode (``run_shares``) runs every rank's share of the split code in
+one process, without a process group: one thread a rank, taking turns,
+so exactly one runs at a time.  At each collective every rank hands in
+its local tensor and the last combines them (the partial outputs
+summed, the rows concatenated) as plain autograd operations, so one
+backward pass from the result (the caller sums through them) gives each
+rank's parameter block its gradient and sums a parameter used whole
+over the ranks, as the train step's reductions do.  It needs no card
+count and no NCCL, so the card checks every degree's shares against the
+unsplit code in one process (``chip_smoke.py`` phase 14).  A share's
+state is its thread's: no block is recomputed inside share mode
+(``models/transformer.run_block``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -49,7 +78,9 @@ __all__ = [
     "set_parallelism_profile", "get_parallelism_profile", "axis_sizes",
     "sharded_batch", "batch_sum", "in_sharded_batch", "model_split",
     "split_rank", "split_here", "note_split", "enter_split", "exit_split",
-    "model_max", "SPLIT_SEEN",
+    "model_max", "SPLIT_SEEN", "gather_seq", "scatter_seq", "whole_seq",
+    "local_seq", "reduce_scatter", "region_in", "region_out",
+    "seq_split_here", "run_shares", "in_shares",
 ]
 
 # Candidates may reference axes absent from the current mesh ("pod" on the
@@ -271,10 +302,18 @@ def batch_sum(t: torch.Tensor) -> torch.Tensor:
 # --- the compute split over ``model`` ----------------------------------
 
 _MODEL = None  # (group, rank, size) inside ``model_split``
+_TLS = threading.local()  # a share's (shares, rank, size) in run_shares
 
 # what the split code last ran on, by region (the local heads, MLP
 # columns, vocabulary rows and experts): a record for tests and probes
 SPLIT_SEEN: dict = {}
+
+
+def _state():
+    """(group, rank, size) of the split here: this thread's share inside
+    ``run_shares``, else ``model_split``'s (None outside both)."""
+    share = getattr(_TLS, "model", None)
+    return _MODEL if share is None else share
 
 
 @contextlib.contextmanager
@@ -292,9 +331,10 @@ def model_split(mesh, axis: str = "model"):
 
 
 def split_rank() -> Optional[tuple]:
-    """(rank, size) along the split axis inside ``model_split``, else
-    None."""
-    return None if _MODEL is None else _MODEL[1:]
+    """(rank, size) along the split axis inside ``model_split`` or a
+    share of ``run_shares``, else None."""
+    st = _state()
+    return None if st is None else st[1:]
 
 
 def split_here(local: int, whole: int) -> bool:
@@ -304,9 +344,25 @@ def split_here(local: int, whole: int) -> bool:
     1, where the split code runs on whole blocks with identity
     collectives.  A block gathered whole (the resolver left the dim
     unsharded) runs whole."""
-    if _MODEL is None:
+    st = _state()
+    if st is None:
         return False
-    return _MODEL[2] == 1 or local < whole
+    return st[2] == 1 or local < whole
+
+
+def seq_split_here(length: int) -> bool:
+    """Whether the residual stream of a sequence of ``length`` splits
+    its rows over the split axis (``res_seq``): inside the split when
+    the axis divides it (the resolver's fallback keeps whole rows), and
+    at a split of size 1, where the sequence collectives are the
+    identity."""
+    st = _state()
+    return st is not None and (st[2] == 1 or length % st[2] == 0)
+
+
+def in_shares() -> bool:
+    """True in a share of ``run_shares``."""
+    return getattr(_TLS, "model", None) is not None
 
 
 def note_split(region: str, n: int) -> None:
@@ -314,61 +370,239 @@ def note_split(region: str, n: int) -> None:
     SPLIT_SEEN[region] = n
 
 
-class _Enter(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+class _Shares:
+    """The ranks of ``run_shares``: one thread each, taking turns (the
+    turn passes at each collective and at the end), so one rank runs at
+    a time, in rank order."""
+
+    def __init__(self, size: int):
+        self.size, self.turn, self.error = size, 0, None
+        self.parts, self.out, self.rounds = [None] * size, None, [0] * size
+        self.cond = threading.Condition()
+
+    def _wait(self, rank):
+        self.cond.wait_for(lambda: self.turn == rank
+                           or self.error is not None)
+        if self.error is not None:
+            raise RuntimeError("another share failed") from self.error
+
+    def _pass(self, rank):
+        self.turn = (rank + 1) % self.size
+        self.cond.notify_all()
+
+    def exchange(self, rank: int, x: torch.Tensor, combine):
+        """Hand in this rank's ``x``; every rank gets ``combine`` of the
+        ranks' tensors in rank order (computed once, by the last)."""
+        with self.cond:
+            self.parts[rank] = x
+            self.rounds[rank] += 1
+            if rank == self.size - 1:
+                if any(t is None for t in self.parts):
+                    raise RuntimeError("the shares ran different "
+                                       "collectives")
+                self.out, self.parts = combine(self.parts), [None] * self.size
+            self._pass(rank)
+            self._wait(rank)
+            return self.out
+
+    def run(self, fn) -> list:
+        grad = torch.is_grad_enabled()
+        results = [None] * self.size
+
+        def body(rank):
+            _TLS.model = (self, rank, self.size)
+            try:
+                with torch.set_grad_enabled(grad):
+                    with self.cond:
+                        self._wait(rank)
+                    results[rank] = fn(rank)
+                with self.cond:
+                    self._pass(rank)
+            except BaseException as e:  # stop the other shares too
+                with self.cond:
+                    if self.error is None:
+                        self.error = e
+                    self.cond.notify_all()
+            finally:
+                _TLS.model = None
+
+        threads = [threading.Thread(target=body, args=(r,), daemon=True)
+                   for r in range(self.size)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if self.error is not None:
+            raise self.error
+        if len(set(self.rounds)) != 1:
+            raise RuntimeError(f"the shares ran different numbers of "
+                               f"collectives: {self.rounds}")
+        return results
+
+
+def run_shares(fn, size: int) -> list:
+    """``[fn(0), ..., fn(size - 1)]``: each rank's share of the split code
+    in turn in this process (share mode, see the module doc).  ``fn(r)``
+    runs as rank ``r`` of ``size``: it passes the model code rank r's
+    blocks of the split parameters (``launch/steps.share_params``) and
+    its rows of a split stream, and the code's collectives exchange the
+    ranks' tensors in process."""
+    return _Shares(size).run(fn)
+
+
+def _narrow(x, dim, rank, size):
+    n = x.shape[dim] // size
+    return x.narrow(dim, rank * n, n)
+
+
+def _comm(x, kind, dim, st):
+    """One collective over the split axis of ``st`` (along ``dim``)
+    between processes: ``identity``, ``all_reduce``, ``gather`` (an
+    all-gather), ``reduce_scatter`` (this rank's block of the sum) or
+    ``slice`` (this rank's block, no communication)."""
+    group, rank, size = st
+    if kind == "identity":
         return x.view_as(x)
+    if kind == "slice":
+        return _narrow(x, dim, rank, size)
+    import torch.distributed as dist
+
+    xt = x.movedim(dim, 0).contiguous()
+    if kind == "gather":
+        out = torch.empty((size * xt.shape[0],) + tuple(xt.shape[1:]),
+                          dtype=xt.dtype, device=xt.device)
+        dist.all_gather_into_tensor(out, xt, group=group)
+        return out.movedim(0, dim)
+    if kind == "reduce_scatter" and dist.get_backend(group) == "nccl":
+        out = torch.empty((xt.shape[0] // size,) + tuple(xt.shape[1:]),
+                          dtype=xt.dtype, device=xt.device)
+        dist.reduce_scatter_tensor(out, xt, group=group)
+        return out.movedim(0, dim)
+    xt = xt.clone()  # gloo has no reduce-scatter: the sum's block
+    dist.all_reduce(xt, group=group)
+    out = xt.movedim(0, dim)
+    return out if kind == "all_reduce" else _narrow(out, dim, rank, size)
+
+
+class _Comm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fwd, bwd, dim, st):
+        ctx.bwd, ctx.dim, ctx.st = bwd, dim, st
+        return _comm(x, fwd, dim, st)
 
     @staticmethod
     def backward(ctx, g):
-        import torch.distributed as dist
-
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return _comm(g, ctx.bwd, ctx.dim, ctx.st), None, None, None, None
 
 
-class _Exit(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        import torch.distributed as dist
+def _sum(parts):
+    return torch.stack(parts).sum(0)
 
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
 
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
+def _collective(x, fwd, bwd, dim=0):
+    """``x`` through the collective ``fwd`` forward and ``bwd`` backward
+    (``_comm``'s kinds) along ``dim``; the identity outside the split or
+    at size 1.  In share mode the forward's exchange is plain autograd,
+    whose backward is ``bwd``: an input read by every rank sums their
+    gradients, a concatenation hands each rank its block."""
+    st = _state()
+    if st is None or st[2] == 1:
+        return x
+    group, rank, size = st
+    dim = dim % x.dim()
+    if not isinstance(group, _Shares):
+        return _Comm.apply(x, fwd, bwd, dim, st)
+    if fwd == "identity":
+        return x
+    if fwd == "slice":
+        return _narrow(x, dim, rank, size)
+    if fwd == "gather":
+        return group.exchange(rank, x, lambda p: torch.cat(p, dim))
+    out = group.exchange(rank, x, _sum)
+    return out if fwd == "all_reduce" else _narrow(out, dim, rank, size)
 
 
 def enter_split(x: torch.Tensor) -> torch.Tensor:
     """The entry of a split region: the identity; in the backward pass
     the input's gradient, partial on each process, is summed over the
-    split axis.  The identity outside ``model_split`` or at size 1."""
-    if _MODEL is None or _MODEL[2] == 1:
-        return x
-    return _Enter.apply(x, _MODEL[0])
+    split axis.  The identity outside the split or at size 1."""
+    return _collective(x, "identity", "all_reduce")
 
 
 def exit_split(x: torch.Tensor) -> torch.Tensor:
     """The exit of a split region: the processes' partial outputs summed
     over the split axis; the gradient passes through.  The identity
-    outside ``model_split`` or at size 1."""
-    if _MODEL is None or _MODEL[2] == 1:
-        return x
-    return _Exit.apply(x, _MODEL[0])
+    outside the split or at size 1."""
+    return _collective(x, "all_reduce", "identity")
+
+
+def gather_seq(x: torch.Tensor) -> torch.Tensor:
+    """The entry of a split region from the split residual stream: the
+    processes' rows of ``x`` (B, S / m, ...) all-gathered along the
+    sequence; backward, the partial gradients summed and this process's
+    rows kept (a reduce-scatter)."""
+    return _collective(x, "gather", "reduce_scatter", 1)
+
+
+def scatter_seq(x: torch.Tensor) -> torch.Tensor:
+    """The exit of a split region into the split residual stream: the
+    partial outputs (B, S, ...) summed over the split axis and this
+    process's rows kept (a reduce-scatter); backward, the rows'
+    gradients all-gathered."""
+    return reduce_scatter(x, 1)
+
+
+def whole_seq(x: torch.Tensor) -> torch.Tensor:
+    """The processes' rows of the split stream all-gathered for a
+    consumer that every process runs whole (the loss, a region left
+    unsplit); backward, this process's rows of the gradient."""
+    return _collective(x, "gather", "slice", 1)
+
+
+def local_seq(x: torch.Tensor) -> torch.Tensor:
+    """This process's rows of a sequence every process holds whole (the
+    embeddings, an unsplit region's output), entering the split stream;
+    backward, the rows' gradients all-gathered."""
+    return _collective(x, "slice", "gather", 1)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The processes' partial ``x`` summed over the split axis and this
+    process's block along ``dim`` kept; backward, the blocks' gradients
+    all-gathered."""
+    return _collective(x, "reduce_scatter", "gather", dim)
+
+
+def region_in(x: torch.Tensor, split: bool, seq: bool) -> torch.Tensor:
+    """The entry of a region: ``gather_seq`` (split) or ``whole_seq``
+    (run whole) from a split stream (``seq``), else ``enter_split`` when
+    the region is split and the identity when not."""
+    if seq:
+        return gather_seq(x) if split else whole_seq(x)
+    return enter_split(x) if split else x
+
+
+def region_out(x: torch.Tensor, split: bool, seq: bool) -> torch.Tensor:
+    """The exit of a region: ``scatter_seq`` (split) or ``local_seq``
+    (run whole) into a split stream (``seq``), else ``exit_split`` when
+    the region is split and the identity when not."""
+    if seq:
+        return scatter_seq(x) if split else local_seq(x)
+    return exit_split(x) if split else x
 
 
 def model_max(x: torch.Tensor) -> torch.Tensor:
     """The elementwise maximum over the split axis of a detached copy
-    (``x`` itself, detached, outside ``model_split`` or at size 1)."""
+    (``x`` itself, detached, outside the split or at size 1)."""
     x = x.detach()
-    if _MODEL is None or _MODEL[2] == 1:
+    st = _state()
+    if st is None or st[2] == 1:
         return x
+    if isinstance(st[0], _Shares):
+        return st[0].exchange(st[1], x,
+                              lambda p: torch.stack(p).amax(0))
     import torch.distributed as dist
 
     out = x.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_MODEL[0])
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=st[0])
     return out

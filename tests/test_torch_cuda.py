@@ -1227,7 +1227,169 @@ def test_model_split_step_at_world_one_equals_unsharded(nccl_mesh):
     assert runs[False][2] == dict(attn_q_heads=cfg.n_heads,
                                   attn_kv_heads=cfg.n_kv_heads,
                                   experts=cfg.padded_experts,
-                                  vocab_rows=cfg.padded_vocab)
+                                  vocab_rows=cfg.padded_vocab, res_rows=64)
     assert runs[True][1] == runs[False][1] == 2 * cfg.n_layers * 3
     np.testing.assert_allclose(runs[False][0], runs[True][0], rtol=1e-6,
                                atol=0)
+
+
+def _share_case(name, backend, use_kernel):
+    """(config, block function of (params, *inputs), path of its
+    parameters, input shapes) of a split region at smoke width, f32."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import encdec, rglru, rwkv6
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import partitioning as P
+
+    b, s = 2, 16
+    kw = dict(attn_backend=backend, use_kernel=use_kernel)
+    if name == "whisper_decoder_layer":
+        cfg = smoke_config("whisper-medium", **kw)
+
+        def fn(p, x, mem):
+            return encdec._dec_block(p, x, cfg, mem, None, T.arange_positions(
+                b, s, x.device), None, None)[0]
+
+        return cfg, fn, ("dec_blocks", 0), [(b, s, 64), (b, cfg.enc_len, 64)]
+    if name == "rglru_block":
+        cfg = smoke_config("recurrentgemma-2b", **kw)
+
+        def fn(p, x):
+            zero = {n: torch.zeros(shape, dtype=dt, device=x.device)
+                    for n, (shape, dt) in rglru._rec_state_spec(cfg, b).items()}
+            return rglru._apply_rec(p, x, cfg, zero)[0]
+
+        return cfg, fn, ("rec1", 0), [(b, s, 64)]
+    if name == "rwkv_block":
+        cfg = smoke_config("rwkv6-3b", rwkv_head_dim=16)
+
+        def fn(p, x):
+            z = lambda *shape: torch.zeros(shape, device=x.device)
+            return rwkv6._apply_block(p, x, cfg, z(b, 64), z(b, 64),
+                                      z(b, 4, 16, 16))[0]
+
+        return cfg, fn, ("blocks", 0), [(b, s, 64)]
+    cfg = smoke_config("camformer-bert", **kw)
+
+    def fn(p, x):  # the decoder-only block under res_seq
+        pos = T.arange_positions(b, s, x.device)
+        seq = P.split_rank() is not None
+        y = T._apply_block(p, P.local_seq(x) if seq else x, cfg,
+                           positions=pos, cache=None, cache_index=None,
+                           kv_len=None, page_table=None, scale_base=None,
+                           backend=None, seq=seq)[0]
+        return P.whole_seq(y) if seq else y
+
+    return cfg, fn, ("blocks", 0), [(b, s, 64)]
+
+
+def _share_grads(fn, params, inputs, dev, shares=None):
+    """(output, parameter and input gradients) of one forward and backward
+    on ``dev``, whole or with ``shares`` = (dims, m) as m shares in
+    turn."""
+    from repro_torch.launch.steps import share_params
+    from repro_torch.models.module import tree_leaves, tree_map
+    from repro_torch.sharding import partitioning as P
+
+    live = tree_map(lambda t: t.detach().to(dev).requires_grad_(), params)
+    xs = [x.detach().to(dev).requires_grad_() for x in inputs]
+    if shares is None:
+        out = fn(live, *xs)
+    else:
+        dims, m = shares
+        out = P.run_shares(lambda r: fn(share_params(live, dims, r, m), *xs),
+                           m)[0]
+    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(2))
+    (out * cot.to(dev)).sum().backward()
+    return [out.detach().cpu()] + [t.grad.cpu() for t in tree_leaves(live)
+                                   + xs]
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("name", ["whisper_decoder_layer", "rglru_block",
+                                  "rwkv_block", "decoder_block_res_seq"])
+def test_model_split_shares_on_the_card_match_the_cpu(cuda, name, m):
+    """Share mode (each rank's share in turn in one process) on the card
+    at smoke width (f32, dense) against the unsplit region on the CPU:
+    the output within 1e-5 of max |out|, every parameter's and input's
+    gradient within 1e-4."""
+    from repro_torch.launch.steps import model_shares
+    from repro_torch.models import get_model_def, init_params
+
+    cfg, fn, path, shapes = _share_case(name, "dense", False)
+    params = init_params(cfg, device="cpu", seed=0)
+    _, dims = model_shares(get_model_def(cfg), cfg, m)
+    for k in path:
+        params, dims = params[k], dims[k]
+    gen = torch.Generator().manual_seed(1)
+    inputs = [torch.randn(sh, generator=gen) for sh in shapes]
+    want = _share_grads(fn, params, inputs, "cpu")
+    got = _share_grads(fn, params, inputs, "cuda", (dims, m))
+    assert (got[0] - want[0]).abs().max() <= 1e-5 * want[0].abs().max()
+    for g, w in zip(got[1:], want[1:]):
+        assert (g - w).abs().max() <= 1e-4 * max(1.0, float(w.abs().max()))
+
+
+def test_model_split_shares_launch_kernel_4_per_rank(cuda):
+    """Whisper's decoder layer on camformer with ``use_kernel`` at smoke
+    width: its shares on the card at m = 2 launch kernel 4 once for each
+    attention of each rank (self and cross: 4; the unsplit layer 2), and
+    sum to the unsplit layer on the card (1e-5 of max |out|; gradients
+    1e-4)."""
+    from repro_torch.launch.steps import model_shares
+    from repro_torch.models import get_model_def, init_params
+
+    cfg, fn, path, shapes = _share_case("whisper_decoder_layer", "camformer",
+                                        True)
+    params = init_params(cfg, device="cpu", seed=0)
+    _, dims = model_shares(get_model_def(cfg), cfg, 2)
+    for k in path:
+        params, dims = params[k], dims[k]
+    gen = torch.Generator().manual_seed(1)
+    inputs = [torch.randn(sh, generator=gen) for sh in shapes]
+    before = bmvm.launches
+    want = _share_grads(fn, params, inputs, "cuda")
+    torch.cuda.synchronize()
+    assert bmvm.launches - before == 2
+    got = _share_grads(fn, params, inputs, "cuda", (dims, 2))
+    torch.cuda.synchronize()
+    assert bmvm.launches - before == 2 + 4
+    assert (got[0] - want[0]).abs().max() <= 1e-5 * want[0].abs().max()
+    for g, w in zip(got[1:], want[1:]):
+        assert (g - w).abs().max() <= 1e-4 * max(1.0, float(w.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "recurrentgemma-2b",
+                                  "rwkv6-3b"])
+def test_family_split_step_at_world_one_equals_unsharded(nccl_mesh, arch):
+    """The ``model``-split train step of the encoder-decoder, Griffin and
+    RWKV-6 families at smoke width on the (1, 1) NCCL mesh (the split
+    code on whole blocks, identity collectives; camformer with
+    ``use_kernel`` where the family has attention) equals the unsharded
+    step on the card bit for bit over 2 steps, kernel 4 launched as
+    often, the split regions run."""
+    from repro_torch.configs import SHAPES, smoke_config
+    from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.models import get_model_def
+    from repro_torch.sharding import partitioning as P
+    from repro_torch.train.data import SyntheticLMData
+
+    SHAPES["gpu_family"] = dict(seq_len=32, global_batch=2, kind="train")
+    cfg = smoke_config(arch, attn_backend="camformer", use_kernel=True)
+    md = get_model_def(cfg)
+    runs = {}
+    for mesh in (None, nccl_mesh):
+        data = SyntheticLMData(cfg, "gpu_family", seed=1, device="cuda",
+                               mesh=mesh)
+        step, opt = make_train_step(md, cfg, warmup=1, mesh=mesh)
+        state = init_state(cfg, opt, seed=0, device="cuda", mesh=mesh)
+        P.SPLIT_SEEN.clear()
+        before, losses = bmvm.launches, []
+        for i in range(2):
+            state, m = step(state, data.batch(i))
+            losses.append(float(m["loss"]))
+        runs[mesh is None] = (losses, bmvm.launches - before,
+                              dict(P.SPLIT_SEEN))
+    assert runs[True][2] == {} and runs[False][2]
+    assert runs[True][1] == runs[False][1]
+    assert runs[False][0] == runs[True][0]

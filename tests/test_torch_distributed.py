@@ -140,7 +140,12 @@ def _jax_leaf(tree, path):
 
 def _initial(name):
     """The JAX package's initial train state of a train case."""
-    arch, over = TRAIN_CASES[name]
+    return initial_state(*TRAIN_CASES[name])
+
+
+def initial_state(arch, over):
+    """The JAX package's initial train state of ``arch``'s smoke config
+    with ``over``."""
     jcfg = j_smoke(arch, **over)
     md = j_model_def(jcfg)
     params = j_init(md.specs(jcfg), jax.random.PRNGKey(0))
@@ -151,20 +156,33 @@ def _initial(name):
 def _reference_train(name):
     """The JAX package's single-device step from ``_initial`` on the
     global batch: 3 steps' metrics and m after step 1."""
-    arch, over = TRAIN_CASES[name]
+    return reference_train(*TRAIN_CASES[name])
+
+
+def reference_train(arch, over, shape="dist_tiny"):
+    """``_reference_train`` of ``arch``'s smoke config with ``over`` (on
+    the batches of the input shape ``shape``)."""
     tcfg, jcfg = t_smoke(arch, **over), j_smoke(arch, **over)
     step, _ = j_train_step(j_model_def(jcfg), jcfg, warmup=1)
     step = jax.jit(step)
-    state = _initial(name)
-    data = TData(tcfg, "dist_tiny", seed=1, device="cpu")
+    state = initial_state(arch, over)
+    data = TData(tcfg, shape, seed=1, device="cpu")
     metrics, m1 = [], None
     for i in range(3):
-        batch = {k: jnp.asarray(v.numpy()) for k, v in data.batch(i).items()}
+        batch = {k: _jax_array(v) for k, v in data.batch(i).items()}
         state, m = step(state, batch)
         metrics.append({k: float(v) for k, v in m.items()})
         if i == 0:
             m1 = jax.tree.map(np.asarray, state["opt"]["m"])
     return metrics, m1
+
+
+def _jax_array(t):
+    """A port batch tensor as a JAX array of the same dtype and values
+    (bfloat16 through float32, which holds it exactly)."""
+    if t.dtype == torch.bfloat16:
+        return jnp.asarray(t.to(torch.float32).numpy()).astype(jnp.bfloat16)
+    return jnp.asarray(t.numpy())
 
 
 def _reference_accum2():

@@ -67,12 +67,13 @@ def test_tp2_spec_streams_equal_tp1_and_the_reference(ranks, name, mode):
 
 
 # what each case's processes ran on: H / 2 heads, d_ff / 2 columns, half
-# the (padded) vocabulary, half the padded experts; granite's single kv
-# head is whole, one copy for each of the two local q heads
+# the (padded) vocabulary, half the padded experts, half the residual
+# stream's 64 rows (res_seq); granite's single kv head is whole, one copy
+# for each of the two local q heads
 SPLIT = {"camformer": dict(attn_q_heads=2, attn_kv_heads=2, mlp_cols=48,
-                           vocab_rows=128),
+                           vocab_rows=128, res_rows=32),
          "granite": dict(attn_q_heads=2, attn_kv_heads=2, experts=4,
-                         vocab_rows=128)}
+                         vocab_rows=128, res_rows=32)}
 WHOLE_ALONG_MODEL = {"camformer": set(), "granite": {"wk", "wv", "router"}}
 
 

@@ -11,7 +11,11 @@ preemption and ``step.error``, dense at tp = 4 on every rank, then the
 launchers at tp = 2 on ranks 0 and 1 while rank 2 runs them at tp = 1.
 PART ``spec_train`` (``tests/test_torch_tp_train.py``): the case of
 ``TRAIN_PART_CASES`` the same way, then the train step on
-make_mesh_for(4, 2).  Each rank writes
+make_mesh_for(4, 2).  PARTs ``families``
+(``tests/test_torch_tp_train_families.py``) and ``seq``
+(``tests/test_torch_tp_train_seq.py``): the train step of
+``FAMILY_CASES`` / ``SEQ_CASES``, each on make_mesh_for(4, its model
+size).  Each rank writes
 what it saw to OUT_DIR/rank<RANK>.pt; the test compares the ranks with
 one another and with the JAX package in the pytest process.
 """
@@ -39,10 +43,27 @@ SERVE_CASES = {  # name: (config overrides, engine keywords, shared prefix)
                           dict(spec_k=3, prefill_slice=8,
                                prefill_impl="fused"), 12),
 }
-TRAIN_CASES = (  # (name, arch, smoke overrides)
-    ("camformer", "camformer-bert", dict(attn_backend="camformer")),
-    ("granite", "granite-moe-3b-a800m", dict(n_experts_padded=8)),
+TRAIN_CASES = (  # (name, arch, smoke overrides, model-axis size, seq_len)
+    ("camformer", "camformer-bert", dict(attn_backend="camformer"), 2, 64),
+    ("granite", "granite-moe-3b-a800m", dict(n_experts_padded=8), 2, 64),
 )
+# the model split of the encoder-decoder, Griffin and RWKV-6 families
+FAMILY_CASES = (
+    ("whisper", "whisper-medium", {}, 2, 64),
+    ("recurrentgemma", "recurrentgemma-2b", {}, 2, 64),
+    ("rwkv6_4_heads", "rwkv6-3b", dict(rwkv_head_dim=16), 2, 64),
+    ("rwkv6", "rwkv6-3b", {}, 2, 64),  # one head: the time mix runs whole
+)
+# the residual stream's sequence split and its fallbacks
+SEQ_CASES = (
+    ("res_seq_gelu_layer_norm", "camformer-bert",
+     dict(attn_backend="dense", act="gelu", norm="layer"), 2, 64),
+    ("kv_seq", "camformer-bert", dict(n_heads=6, n_kv_heads=6), 4, 64),
+    # 8 patches + 55 tokens: 63 rows, which 2 does not divide
+    ("vlm_odd", "llava-next-mistral-7b", {}, 2, 63),
+)
+TRAIN_PARTS = {"spec_train": TRAIN_CASES, "families": FAMILY_CASES,
+               "seq": SEQ_CASES}
 TRAIN_STEPS = 3
 CHAOS_PROMPTS = [[3, 5, 8, 1], [4, 9, 2], [7, 7, 1, 3, 8], [11, 4, 6]]
 GATEWAY_PROMPTS = [[3, 5, 8, 1], [9, 2, 6]]
@@ -187,12 +208,13 @@ def _names(tree, name=""):
     return name
 
 
-def train_part(out_dir):
-    """The ``model``-split step on make_mesh_for(4, 2) (tp profile) from
-    the JAX package's initial state: 3 steps' metrics, AdamW's m after
-    step 1 gathered ((1 - b1) x the clipped gradients), the regions'
-    local extents (``SPLIT_SEEN``) and the step's plan with each leaf's
-    storage placement along ``model``."""
+def train_part(out_dir, cases):
+    """The ``model``-split step of each case on make_mesh_for(4, its
+    model size) (tp profile) from the JAX package's initial state: 3
+    steps' metrics, AdamW's m after step 1 gathered ((1 - b1) x the
+    clipped gradients), the parameters steps 2 and 3 start from, the
+    regions' local extents (``SPLIT_SEEN``) and the step's plan with
+    each leaf's storage placement along ``model``."""
     from repro_torch.configs import SHAPES, smoke_config
     from repro_torch.launch.elastic import rescale_state
     from repro_torch.launch.mesh import make_mesh_for, set_mesh
@@ -203,11 +225,11 @@ def train_part(out_dir):
     from repro_torch.train.checkpoint import host_state
     from repro_torch.train.data import SyntheticLMData
 
-    SHAPES["tiny"] = dict(seq_len=64, global_batch=8, kind="train")
-    mesh = make_mesh_for(4, 2)
-    set_mesh(mesh)
     res = {}
-    for name, arch, over in TRAIN_CASES:
+    for name, arch, over, model, seq_len in cases:
+        SHAPES["tiny"] = dict(seq_len=seq_len, global_batch=8, kind="train")
+        mesh = make_mesh_for(4, model)
+        set_mesh(mesh)
         cfg = smoke_config(arch, **over)
         md = get_model_def(cfg)
         data = SyntheticLMData(cfg, "tiny", seed=1, device="cpu", mesh=mesh)
@@ -216,8 +238,10 @@ def train_part(out_dir):
         state, _ = rescale_state(os.path.join(out_dir, f"jax_{name}"), md,
                                  cfg, mesh)
         P.SPLIT_SEEN.clear()
-        metrics, grads1 = [], None
+        metrics, grads1, params_at = [], None, []
         for i in range(TRAIN_STEPS):
+            if i:  # the parameters each later step starts from
+                params_at.append(host_state(state["params"]))
             state, m = step(state, data.batch(i))
             metrics.append({k: float(v) for k, v in m.items()})
             if i == 0:
@@ -229,8 +253,9 @@ def train_part(out_dir):
             (k, t.placements[model].is_shard(), h)), state["params"],
             step.model_plan, _names(state["params"]))
         res[name] = dict(metrics=metrics, grads1=grads1,
-                         seen=dict(P.SPLIT_SEEN), leaves=leaves)
-    set_mesh(None)
+                         seen=dict(P.SPLIT_SEEN), leaves=leaves,
+                         params_at=params_at)
+        set_mesh(None)
     return res
 
 
@@ -349,18 +374,21 @@ def main():
         rank=rank, world_size=world)
     from repro_torch.launch.mesh import make_tp_mesh
 
-    for tp in (2, 4):  # every process makes the groups together
-        make_tp_mesh(tp)
-    params = torch.load(os.path.join(out_dir, "params.pt"))
     res, took = {}, {}
     try:
+        if part in ("serve", "spec_train"):
+            for tp in (2, 4):  # every process makes the groups together
+                make_tp_mesh(tp)
+            params = torch.load(os.path.join(out_dir, "params.pt"))
         parts = ((("serving", lambda: serving_part(params, SERVE_PART_CASES,
                                                    True)),
                   ("launch", lambda: launcher_part(params)))
                  if part == "serve" else
                  (("serving", lambda: serving_part(params, TRAIN_PART_CASES,
                                                    False)),
-                  ("train", lambda: train_part(out_dir))))
+                  ("train", lambda: train_part(out_dir, TRAIN_CASES)))
+                 if part == "spec_train" else
+                 (("train", lambda: train_part(out_dir, TRAIN_PARTS[part])),))
         for name, fn in parts:
             t0 = time.perf_counter()
             res[name] = fn()
