@@ -166,7 +166,25 @@ Phases, in order (each raises on failure; nothing is caught):
      plain version, exact kernel-4 launches (one an attention a rank),
      no plain version on the card; the binarized Q/K signs that flip
      against the unsplit run are counted and a share with a flip is run
-     again on the unsplit run's projections.
+     again on the unsplit run's projections;
+ 15. the sharded contiguous serving steps: (a) inside phase 12's NCCL
+     group of one, phase 6 (a)'s run (8 x 896 tokens, whole-prompt
+     prefill) through ``make_prefill_step(mesh=)`` /
+     ``make_serve_step(mesh=)`` on the (1, 1) mesh, with DTensor blocks
+     of the weights and caches, cut to ``SERVE_SPLIT_STEPS`` greedy
+     steps: the prefill logits and every step's logits bit-identical to
+     phase 6's, kernel 4 once a layer, kernel 3 once a layer a step; (b)
+     every rank's share of the sharded steps in turn in one process
+     (``launch.steps.serve_shares``), f32 full width, B = 2 x 512 and 8
+     greedy steps: ``camformer-bert`` (2 layers, its heads split at
+     model = 2 and 4) and ``recurrentgemma-2b`` (one period; ``qheads``
+     at 2 and ``q_seq`` at 4, its ring's sequence split over ``model``)
+     on ``camformer`` with ``use_kernel``, recurrentgemma also on
+     ``dense``: every step's logits within 1e-5 of max |logits| of the
+     unsplit run's, the picks identical, exact kernel-4 and kernel-3
+     launches, every kernel-4 launch bit-exact against its plain
+     version, the Q/K sign flips counted and held as in phase 14, no
+     plain version on the card.
 
 Phase 3 also holds kernels 1, 2 (dense and binary) and 2b at granite's
 GQA width (8 kv heads, G = 3), and kernel 4 at the train step's shape
@@ -194,6 +212,7 @@ next to this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import json
@@ -737,6 +756,10 @@ def library_attention(a, sq, binary=False):
 # the contiguous slice: 8 prompts of 896 tokens in a 1024-token cache
 CONTIG_B, CONTIG_PROMPT, CONTIG_CACHE = 8, 896, 1024
 CONTIG_DECODE, CONTIG_CHUNK, CONTIG_CHUNK_DECODE = 127, 128, 31
+# phase 15 (a) runs leg (a) again through the sharded steps, cut to its
+# first SERVE_SPLIT_STEPS decode steps, against leg (a)'s logits
+SERVE_SPLIT_STEPS = 32
+CONTIG_RECORD = {}
 FLASH_BF16_TOL = 2**-7  # one bf16 rounding step of an f32 result
 
 
@@ -1432,11 +1455,17 @@ def contiguous_slice_phase():
             pos = torch.full((b,), CONTIG_PROMPT, dtype=torch.int32,
                              device="cuda")
             picks = []
+            record = leg == "a"
+            if record:  # phase 15 (a) runs the first steps again
+                CONTIG_RECORD["prefill"] = logits.clone()
+                CONTIG_RECORD["logits"] = []
             t0 = time.perf_counter()
-            for _ in range(steps):
+            for step in range(steps):
                 tok = torch.argmax(logits, -1)
                 picks.append(tok)
                 logits, caches = serve(params, tok, pos, pos + 1, caches)
+                if record and step < SERVE_SPLIT_STEPS:
+                    CONTIG_RECORD["logits"].append(logits.clone())
                 pos = pos + 1
             torch.cuda.synchronize()
             decode_s = time.perf_counter() - t0
@@ -3248,11 +3277,74 @@ def distribution_phase(smi):
         runs = [sharded_train_phase(mesh, smi)]
         distributed_decode_phase(mesh)  # its launches: logged, not rows
         runs += sharded_families_phase(mesh)
+        runs.append(sharded_serving_phase(mesh, smi))
     nccl = ".".join(map(str, torch.cuda.nccl.version()))
     log(f"phase 12: backend {backend}, NCCL {nccl}, "
         f"{time.perf_counter() - t0:.1f} s")
     assert backend == "nccl", backend
     return runs
+
+
+def sharded_serving_phase(mesh, smi):
+    """Phase 15 (a): phase 6 (a)'s camformer-bert run (full width and
+    depth, bf16, ``use_kernel``: 8 x 896-token prompts, whole-prompt
+    prefill, greedy steps) through ``make_prefill_step(mesh=)`` /
+    ``make_serve_step(mesh=)`` on the world-one mesh (1, 1): DTensor
+    blocks of the weights (``serve_params``) and caches
+    (``init_caches``), the batch's rows (``local_rows``), logits back as
+    DTensor blocks, and the split code at size 1 inside
+    ``model_split``.  Cut to SERVE_SPLIT_STEPS steps: the prefill logits
+    and every step's logits and picks bit-identical to phase 6's; kernel
+    4 exactly once a layer, kernel 3 once a layer a step; no plain
+    version on the card.  Returns its launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as S
+    from repro_torch.models import cast_params, get_model_def, init_params
+
+    t0 = time.perf_counter()
+    cfg = get_config("camformer-bert", use_kernel=True)
+    md = get_model_def(cfg)
+    n_layers, b = cfg.n_layers, CONTIG_B
+    params = S.serve_params(cast_params(
+        init_params(cfg, device="cuda", seed=SEED), torch.bfloat16), md,
+        cfg, mesh)
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (b, CONTIG_PROMPT))).to("cuda")
+    caches = S.init_caches(md, cfg, b, CONTIG_CACHE, mesh, device="cuda")
+    prefill = S.make_prefill_step(md, cfg, mesh=mesh)
+    serve = S.make_serve_step(md, cfg, mesh=mesh)
+    rec = CONTIG_RECORD
+    reset_launches()
+    with plain_calls_on_card() as plain:
+        logits, caches = prefill(params, S.local_rows({"tokens": tokens},
+                                                      mesh, b), caches)
+        assert torch.equal(logits.full_tensor(), rec["prefill"]), \
+            "sharded prefill logits differ from phase 6 (a)'s"
+        pos = torch.full((b,), CONTIG_PROMPT, dtype=torch.int32,
+                         device="cuda")
+        for step in range(SERVE_SPLIT_STEPS):
+            tok = torch.argmax(logits.full_tensor(), -1)
+            logits, caches = serve(params, tok, pos, pos + 1, caches)
+            assert torch.equal(logits.full_tensor(), rec["logits"][step]), \
+                f"sharded decode step {step} differs from phase 6 (a)'s"
+            pos = pos + 1
+        torch.cuda.synchronize()
+    launches = read_launches()
+    assert plain == {}, plain
+    want = {"bacam_mvm": n_layers,
+            "bacam_topk_stage1": n_layers * SERVE_SPLIT_STEPS}
+    assert {k: v for k, v in launches.items() if v} == want, launches
+    log(f"phase 15 (a) sharded prefill + serve steps, mesh (1, 1) "
+        f"({smi}): " + json.dumps(dict(
+            arch="camformer-bert", batch=b, prompt=CONTIG_PROMPT,
+            cache_len=CONTIG_CACHE, decode_steps=SERVE_SPLIT_STEPS,
+            logits_equal_phase_6=True,
+            logits_placements=[str(pl) for pl in logits.placements],
+            launches=want, seconds=time.perf_counter() - t0)))
+    del caches, params, logits
+    CONTIG_RECORD.clear()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # phase 13: each rank's share of a head-sharded tick, in one process
@@ -3445,54 +3537,76 @@ def share_block(arch, cfg):
 @contextlib.contextmanager
 def held_projections(cfg):
     """On a backend that binarizes Q and K (camformer): record the
-    unsplit run's Q/K/V (``attention._project``) call by call; in a
-    share, compare the share's binarized Q and K with the unsplit run's
-    heads of that rank (a sign that differs is a flip: a GEMM over a
-    column slice, or a split region upstream, may round otherwise than
-    the unsplit code), and with ``hold`` set of (rank, call) substitute
-    the recorded values, the gradient still flowing into the share's own
-    projections.  Yields the state dict (no flip on other backends)."""
+    unsplit run's Q/K/V (``attention._project``) and its rotated Q and K
+    (``attention.rope``) call by call; in a share, compare the share's
+    Q and K signs, before and after the rotation (the signs binarized),
+    with the unsplit run's block of that rank (a sign that differs is a
+    flip: a GEMM over a column slice, or a split region upstream, may
+    round otherwise than the unsplit code, and a component near zero
+    may change sign in the rotation only), and with ``hold`` set of
+    ("proj" | "rope", rank, call) substitute the recorded values, the
+    gradient still flowing into the share's own projections.  Yields the
+    state dict (no flip on other backends)."""
     from repro_torch.models import attention
     from repro_torch.sharding import partitioning as P
 
-    orig = attention._project
-    st = dict(whole=[], calls={}, flips={}, hold=set())
+    orig, orig_rope = attention._project, attention.rope
+    st = dict(whole=[], whole_rope=[], calls={}, flips={}, hold=set())
     if cfg.backend != "camformer":
         yield st
         return
 
-    def project(p, x, cfg_, split=False, seq=False, cross_kv=None):
-        q, k, v = orig(p, x, cfg_, split, seq, cross_kv)
+    def count(kind, rank):
+        i = st["calls"][kind, rank] = st["calls"].get((kind, rank), -1) + 1
+        return kind, rank, i
+
+    def project(p, x, cfg_, split=False, seq=False, cross_kv=None,
+                q_rows=False, q_cols=False):
+        q, k, v = orig(p, x, cfg_, split, seq, cross_kv, q_rows=q_rows,
+                       q_cols=q_cols)
         at = P.split_rank()
         if at is None:
             st["whole"].append((q.detach(), k.detach(), v.detach()))
             return q, k, v
-        rank, _ = at
-        i = st["calls"][rank] = st["calls"].get(rank, -1) + 1
-        wq, wk, wv = st["whole"][i]
-        hq = q.shape[1]
-        q0 = rank * hq if hq < cfg_.n_heads else 0
-        hk = (cross_kv[0].shape[1] if cross_kv is not None
-              else p["wk"].shape[1] // cfg_.head_dim)
-        ref_q = wq[:, q0:q0 + hq]
-        if hk < cfg_.n_kv_heads:  # heads: this rank's kv heads
-            ref_k = wk[:, rank * hk:(rank + 1) * hk]
-        elif hq < cfg_.n_heads:  # qheads: the whole K, selected
-            ref_k, _ = attention.select_kv(wk, wv, q0, hq, cfg_)
-        else:  # attention whole on every rank
-            ref_k = wk
-        st["flips"][rank, i] = int(((q > 0) != (ref_q > 0)).sum()
-                                   + ((k > 0) != (ref_k > 0)).sum())
-        if (rank, i) in st["hold"]:
+        key = count("proj", at[0])
+        wq, wk, _ = st["whole"][key[2]]
+        ref_q, ref_k = rank_block(wq, q, at[0]), rank_block(wk, k, at[0])
+        st["flips"][key] = int(((q > 0) != (ref_q > 0)).sum()
+                               + ((k > 0) != (ref_k > 0)).sum())
+        if key in st["hold"]:
             q = ref_q + (q - q.detach())
             k = ref_k + (k - k.detach())
         return q, k, v
 
-    attention._project = project
+    def rope(x, positions, theta):
+        out = orig_rope(x, positions, theta)
+        at = P.split_rank()
+        if at is None:
+            st["whole_rope"].append(out.detach())
+            return out
+        key = count("rope", at[0])
+        ref = rank_block(st["whole_rope"][key[2]], out, at[0])
+        st["flips"][key] = int(((out > 0) != (ref > 0)).sum())
+        if key in st["hold"]:
+            out = ref + (out - out.detach())
+        return out
+
+    attention._project, attention.rope = project, rope
     try:
         yield st
     finally:
-        attention._project = orig
+        attention._project, attention.rope = orig, orig_rope
+
+
+def rank_block(whole, part, rank):
+    """``rank``'s block of the unsplit run's tensor ``whole`` (B, heads,
+    S, D) where a share's ``part`` holds fewer heads (``heads``,
+    ``qheads``) or query rows (``q_seq``): the dims that differ, cut at
+    ``rank`` times the part's extent."""
+    for d, (n, m) in enumerate(zip(whole.shape, part.shape)):
+        if m < n:
+            whole = whole.narrow(d, rank * m, m)
+    return whole
 
 
 @contextlib.contextmanager
@@ -3625,8 +3739,8 @@ def share_phase(smi):
                         (arch, backend, m, launches)
                     seen = dict(P.SPLIT_SEEN)
                     flips = dict(held["flips"])
-                    held_shares = sorted({r for (r, _), n in flips.items()
-                                          if n})
+                    held_shares = sorted({r for (_, r, _), n in
+                                          flips.items() if n})
                     if held_shares:  # again, flipped calls held
                         held["hold"] = {key for key, n in flips.items() if n}
                         held["calls"].clear()
@@ -3653,6 +3767,153 @@ def share_phase(smi):
     log(f"phase 14 model-split shares, one process, f32 full width "
         f"({smi}): {json.dumps(lines)}")
     log(f"phase 14: {seconds:.1f} s")
+    return runs
+
+
+# phase 15 (b): every rank's share of the sharded serving steps, in one
+# process: (arch, backends, depth overrides, model degrees); B = 2
+# prompts of 512 tokens in a 576-slot cache (a multiple of 4 x the
+# 16-key group: each shard of a sequence-split cache holds whole groups)
+SERVE_SHARE_CASES = (("camformer-bert", ("camformer",), dict(n_layers=2),
+                      (2, 4)),
+                     ("recurrentgemma-2b", ("camformer", "dense"),
+                      dict(n_layers=3), (2, 4)))
+SERVE_SHARE_B, SERVE_SHARE_PROMPT = 2, 512
+SERVE_SHARE_CACHE, SERVE_SHARE_STEPS = 576, 8
+
+
+def serve_share_run(md, cfg, params, tokens, m=None):
+    """(logits of the prefill and each step, the greedy picks, launches)
+    of the contiguous prefill and SERVE_SHARE_STEPS greedy steps: whole,
+    or with ``m`` every rank's share of the sharded steps in turn
+    (``serve_shares``; each step's shares' logits joined along the
+    vocabulary where it splits)."""
+    from repro_torch.launch import steps as S
+
+    b = tokens.shape[0]
+    caches = S.init_caches(md, cfg, b, SERVE_SHARE_CACHE, device="cuda")
+    if m is None:
+        prefill, serve = S.make_prefill_step(md, cfg), \
+            S.make_serve_step(md, cfg)
+        call = lambda kind, args: (prefill(params, *args, caches)
+                                   if kind == "prefill"
+                                   else serve(params, *args, caches))[0]
+    else:
+        def call(kind, args):
+            outs = S.serve_shares(md, cfg, kind, params, args, caches, m)
+            return torch.cat(outs, -1) if outs[0].shape[-1] < \
+                cfg.padded_vocab else outs[0]
+    reset_launches()
+    with torch.no_grad():
+        out = [call("prefill", ({"tokens": tokens},))]
+        picks = []
+        for step in range(SERVE_SHARE_STEPS):
+            pos = torch.full((b,), SERVE_SHARE_PROMPT + step,
+                             dtype=torch.int32, device="cuda")
+            picks.append(out[-1].argmax(-1).to(torch.int32))
+            out.append(call("decode", (picks[-1], pos, pos + 1)))
+    torch.cuda.synchronize()
+    from repro_torch.kernels import bacam_mvm
+
+    return out, picks, read_launches(families=True), \
+        dict(bacam_mvm.shape_launches)
+
+
+def serve_share_phase(smi):
+    """Phase 15 (b): for each case of SERVE_SHARE_CASES at full width
+    (f32, the depth cut), the unsplit contiguous prefill and greedy
+    steps, then at each degree every rank's share of the sharded steps
+    in turn in this process (``launch.steps.serve_shares``): every
+    step's logits within 1e-5 of max |logits| of the unsplit run's, the
+    picks identical, kernel 4 once an attention layer a rank at prefill
+    and bit-exact against its plain version on every launch, kernel 3
+    (camformer-bert, whose heads split) once a layer a step a rank, the
+    binarized Q/K signs that flip against the unsplit run counted (a run
+    with a flip is held on the recorded projections and run again), no
+    plain version on the card.  camformer-bert splits its heads;
+    recurrentgemma-2b (10 q heads on one kv head) runs ``qheads`` at 2
+    and ``q_seq`` at 4, its ring's sequence split over ``model`` at
+    both.  Returns the counting runs' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model_def, init_params
+    from repro_torch.sharding import partitioning as P
+
+    t0 = time.perf_counter()
+    runs, lines = [], {}
+    for arch, backends, over, degrees in SERVE_SHARE_CASES:
+        for backend in backends:
+            cfg = get_config(arch, attn_backend=backend, dtype="float32",
+                             use_kernel=backend == "camformer", **over)
+            md = get_model_def(cfg)
+            params = init_params(cfg, device="cuda", seed=SEED)
+            tokens = torch.from_numpy(np.random.default_rng(SEED + 15)
+                                      .integers(0, cfg.vocab, (
+                                          SERVE_SHARE_B, SERVE_SHARE_PROMPT))
+                                      .astype(np.int32)).cuda()
+            # attention layers: every layer, or the period's one
+            n_attn = 1 if arch == "recurrentgemma-2b" else cfg.n_layers
+            kernel3 = arch == "camformer-bert" and backend == "camformer"
+            with held_projections(cfg) as held, kernel4_held() as k4, \
+                    plain_calls_on_card() as plain:
+                want, want_picks, one, shapes = serve_share_run(
+                    md, cfg, params, tokens)
+                runs.append(one)
+                k4_shapes = collections.Counter(shapes)
+                for m in (1,) + degrees:
+                    if m > 1:
+                        held["calls"].clear()
+                        held["hold"].clear()
+                        held["flips"].clear()
+                        P.SPLIT_SEEN.clear()
+                        got, picks, launches, shapes = serve_share_run(
+                            md, cfg, params, tokens, m)
+                        runs.append(launches)
+                        k4_shapes.update(shapes)
+                    else:
+                        launches = one
+                    k4_want = n_attn * m if backend == "camformer" else 0
+                    live = {n: c for n, c in launches.items() if c}
+                    assert live == {k: v for k, v in {
+                        "bacam_mvm": k4_want,
+                        "bacam_topk_stage1": n_attn * SERVE_SHARE_STEPS * m
+                        if kernel3 else 0}.items() if v}, (arch, m, live)
+                    if m == 1:
+                        continue
+                    seen = dict(P.SPLIT_SEEN)
+                    flips = dict(held["flips"])
+                    if any(flips.values()):  # again, flipped calls held
+                        held["hold"] = {key for key, n in flips.items()
+                                        if n}
+                        held["calls"].clear()
+                        got, picks, again, _ = serve_share_run(
+                            md, cfg, params, tokens, m)
+                        assert again == launches, (again, launches)
+                    errs = [float((g - w).abs().max() / w.abs().max())
+                            for g, w in zip(got, want)]
+                    assert max(errs) <= 1e-5, (arch, backend, m, errs)
+                    assert all(torch.equal(a, b)
+                               for a, b in zip(picks, want_picks)), \
+                        (arch, backend, m)
+                    lines[f"{arch}/{backend} m={m}"] = dict(
+                        max_rel_err=max(errs), local_extents=seen,
+                        flips=sum(flips.values()),
+                        held_ranks=sorted({r for (_, r, _), n in
+                                           flips.items() if n}),
+                        launches=live)
+                assert plain == {}, (arch, backend, plain)
+                assert k4[1] == 0, f"kernel 4 differs from its plain " \
+                                   f"version in {k4[1]} of {k4[0]} launches"
+                lines[f"{arch}/{backend} kernel 4 held"] = k4[0]
+            # kernel 4's launches by (B, R, Skv, W), the unsplit and
+            # the counting share runs
+            lines[f"{arch}/{backend} kernel 4 shapes"] = {
+                str(k): v for k, v in k4_shapes.items()}
+            del params, want, got
+            torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f"phase 15 (b) sharded serving shares, one process, f32 full width "
+        f"({smi}): {json.dumps(lines)}")
+    log(f"phase 15: {seconds:.1f} s")
     return runs
 
 
@@ -3789,6 +4050,8 @@ def main():
     log(f"elapsed {time.perf_counter() - t0:.1f}s: tp shares")
     runs += share_phase(smi_line)
     log(f"elapsed {time.perf_counter() - t0:.1f}s: model-split shares")
+    runs += serve_share_phase(smi_line)
+    log(f"elapsed {time.perf_counter() - t0:.1f}s: sharded serving shares")
     for row in rows:  # launches over every path run
         row["launches"] = sum(run.get(row["name"], 0) for run in runs)
         if row["path"] != "none":

@@ -57,10 +57,12 @@ class ModelConfig:
     # "hybrid" backend flash-scores its chunks through the dense pool
     # instead.
     prefill_impl: str = "auto"
-    # Distributed CAM search: shard_map the decode-time association stage
-    # over the seq-sharded cache — local two-stage top-k per shard, then a
+    # Distributed CAM search: a B = 1 camformer decode searches a
+    # sequence-sharded cache — local two-stage top-k per shard, then a
     # tiny candidate all-gather (k values/shard, not N scores) + global
-    # top-k + partial-sum contextualization.  Not served by this package.
+    # top-k + partial-sum contextualization (core/backend.py
+    # ``_distributed_attend`` over the ambient mesh; the sharded serving
+    # steps of launch/steps.py split the cache itself).
     distributed_topk: bool = False
     # Chunked prefill (serving): process the prompt in chunks of this many
     # tokens, attending to the cache-so-far — bounds prefill activation

@@ -27,7 +27,7 @@ from repro_torch.core.binarize import binarize_qk, had_scales, sign_pm1
 from repro_torch.core.topk import NEG_INF, stable_topk, two_stage_topk
 
 __all__ = ["AttentionSpec", "attention", "binary_paged_attention",
-           "camformer_paged_attention",
+           "camformer_paged_attention", "seq_split_attention",
            "dense_attention", "dense_reference", "make_mask",
            "topk_softmax_weights"]
 
@@ -141,6 +141,17 @@ def _binary_scores(qg, k, spec: AttentionSpec, rng=None):
     ``noise_sigma`` the scores come from the device model (noise over
     the broadcast (B, H_kv, G, Sq, Skv, tiles) shape, keyed by ``rng``),
     never from the kernel, as in the reference."""
+    scores, q_scale, k_scale = _binary_parts(qg, k, spec, rng)
+    # HAD temperature: the per-row q scale and the per-head k scale, so
+    # selection on the raw scores orders keys as the hardware does
+    k_scale_head = k_scale.mean(dim=-2, keepdim=True)  # (B, H_kv, 1, 1)
+    temp = q_scale * k_scale_head[:, :, None]  # (B, H_kv, G, Sq, 1)
+    return scores, temp
+
+
+def _binary_parts(qg, k, spec: AttentionSpec, rng=None):
+    """``_binary_scores``' scores and the q and k HAD scales it builds the
+    temperature from: (B, H_kv, G, Sq, 1) and (B, H_kv, Skv, 1)."""
     qb, kb, q_scale, k_scale = binarize_qk(
         qg, k, trainable=spec.trainable_binarize, with_scales=True)
     if spec.adc_bits is not None or spec.noise_sigma != 0.0:
@@ -157,11 +168,7 @@ def _binary_scores(qg, k, spec: AttentionSpec, rng=None):
         scores = s3.reshape(b, hkv, g, sq, skv)
     else:
         scores = bacam.bacam_scores(qb, kb[:, :, None])
-    # HAD temperature: the per-row q scale and the per-head k scale, so
-    # selection on the raw scores orders keys as the hardware does
-    k_scale_head = k_scale.mean(dim=-2, keepdim=True)  # (B, H_kv, 1, 1)
-    temp = q_scale * k_scale_head[:, :, None]  # (B, H_kv, G, Sq, 1)
-    return scores.to(torch.float32), temp
+    return scores.to(torch.float32), q_scale, k_scale
 
 
 def attention(q, k, v, spec: AttentionSpec = AttentionSpec(), *,
@@ -208,6 +215,55 @@ def attention(q, k, v, spec: AttentionSpec = AttentionSpec(), *,
     # sparse contextualization: gather only the k selected V rows
     v_sel = _gather_rows(v, top_i)
     out = torch.einsum("bhgqk,bhgqkd->bhgqd", w.to(v.dtype), v_sel)
+    return out.reshape(b, h, sq, v.shape[-1]).to(q.dtype)
+
+
+def seq_split_attention(q, k, v, spec: AttentionSpec, comm, length: int, *,
+                        q_positions, kv_positions, kv_valid=None,
+                        window: int | None = None,
+                        scale: float | None = None):
+    """Causal ``attention`` (``dense`` or ``binary`` mode) over a cache
+    whose sequence is split into shards: k / v (B, H_kv, S_l, D) are this
+    process's block, ``kv_positions`` (B?, S_l) its slots' positions and
+    ``length`` the whole cache's slots.
+
+    Each shard computes its softmax partials, the row maximum over its
+    valid keys, then the sum of exponentials and the unnormalized
+    output against the maximum over every shard (``comm.max``); one
+    ``comm.sum`` of the (B, H_kv, G, Sq, 1 + Dv) float32 partials merges
+    them (log-sum-exp).  Binary scoring's key temperature, the mean of
+    the key scales over every slot, sums the shards' scales
+    (``comm.sum``) and divides by ``length``.  A row with no valid key
+    on any shard gives 0.  Returns (B, H, Sq, Dv) in q's dtype."""
+    b, h, sq, d = q.shape
+    h_kv, skv = v.shape[1], v.shape[2]
+    if scale is None:
+        scale = 1.0 / (d**0.5)
+    mask = make_mask(sq, skv, causal=True, q_positions=q_positions,
+                     kv_positions=kv_positions, kv_valid=kv_valid,
+                     window=window, device=q.device)[:, :, None]
+    qg = _split_gqa(q, h_kv)
+    if spec.mode == "dense":
+        logits = torch.einsum("bhgqd,bhkd->bhgqk", qg.to(torch.float32),
+                              k.to(torch.float32)) * scale
+    elif spec.mode == "binary":
+        scores, q_scale, k_scale = _binary_parts(qg, k, spec)
+        k_head = comm.sum(k_scale.to(torch.float32).sum(
+            dim=-2, keepdim=True)) / length  # (B, H_kv, 1, 1)
+        logits = scores * (q_scale * k_head[:, :, None].to(q_scale.dtype)) \
+            * scale
+    else:
+        raise ValueError(f"seq_split_attention: mode {spec.mode!r}")
+    logits = torch.where(mask, logits.to(torch.float32),
+                         torch.full_like(logits, NEG_INF, dtype=torch.float32))
+    m = comm.max(logits.amax(-1, keepdim=True))
+    p = torch.where(mask, torch.exp(logits - m), torch.zeros_like(logits))
+    part = torch.cat([p.sum(-1, keepdim=True),
+                      torch.einsum("bhgqk,bhkd->bhgqd", p,
+                                   v.to(torch.float32))], dim=-1)
+    part = comm.sum(part)
+    den = part[..., :1]
+    out = part[..., 1:] / torch.where(den > 0, den, torch.ones_like(den))
     return out.reshape(b, h, sq, v.shape[-1]).to(q.dtype)
 
 

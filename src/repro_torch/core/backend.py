@@ -45,6 +45,19 @@ holds, rotated once the window wraps) masks by those positions, and
 camformer decode against it takes the plain association stage, as the
 reference routes it.
 
+Inside a sharded serving step a contiguous cache may be this process's
+block of the sequence (``partitioning.cache_seq``, the reference's
+``CACHE_RULES["kv_seq"]``): a write lands only in the shard that owns
+its position (``_seq_write``; every shard keeps the running
+``k_scale``), and decode merges the shards.  Dense and binary decode
+merge each shard's softmax partials by log-sum-exp
+(``core/attention.seq_split_attention``: per layer and step one max and
+one sum of (B, H, Sq, 1 + Dv) float32 across the shards, and for binary
+one (B, H_kv) key-scale sum); camformer exchanges its k candidates a
+shard, the distributed CAM search (``_shard_attend``).  A cache whose
+heads are this process's (``heads``) needs no merge: every head count
+here is read off the tensors.
+
 Caches and pools are updated IN PLACE (the reference's functional
 ``dynamic_update_slice`` / ``.at[].set`` would copy a whole cache per
 layer per step): ``write_cache`` / ``decode`` / ``paged_decode`` write
@@ -70,9 +83,11 @@ from repro_torch.core.attention import (AttentionSpec, _gather_rows,
                                         binary_paged_attention,
                                         camformer_paged_attention,
                                         dense_attention,
+                                        seq_split_attention,
                                         topk_softmax_weights)
 from repro_torch.core.binarize import had_scales, sign_pm1
 from repro_torch.core.topk import stable_topk
+from repro_torch.sharding import partitioning as P
 
 __all__ = ["AttentionBackend", "DenseBackend", "BinaryBackend",
            "CamformerBackend", "HybridBackend", "register_backend", "get_backend", "list_backends",
@@ -127,6 +142,53 @@ def _seq_insert(buf, upd, index):
     rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
     buf[rows, :, pos] = upd.transpose(1, 2)
     return buf
+
+
+def _seq_write(buf, upd, index):
+    """``_seq_insert`` into a contiguous cache, or, inside
+    ``partitioning.cache_seq_split``, into this process's block of its
+    sequence: the start is clamped against the whole length (n shards x
+    the block), and only the rows at positions the block holds are
+    written."""
+    split = P.cache_seq()
+    if split is None:
+        return _seq_insert(buf, upd, index)
+    _, shard, n = split
+    local, s = buf.shape[2], upd.shape[2]
+    offset, length = shard * local, n * local
+    upd = upd.to(buf.dtype)
+    if not torch.is_tensor(index) or index.ndim == 0:
+        i = min(max(int(index), 0), length - s)
+        lo, hi = max(i, offset), min(i + s, offset + local)
+        if lo < hi:
+            buf[:, :, lo - offset:hi - offset] = upd[:, :, lo - i:hi - i]
+        return buf
+    start = torch.clamp(index.to(torch.int64), 0, length - s)
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    for t in range(s):  # one row a position: no two writes collide
+        slot = start + t - offset
+        mine = (slot >= 0) & (slot < local)
+        slot = torch.clamp(slot, 0, local - 1)
+        old = buf[rows, :, slot]
+        keep = mine.reshape((-1,) + (1,) * (old.dim() - 1))
+        buf[rows, :, slot] = torch.where(keep, upd[:, :, t], old)
+    return buf
+
+
+def _cache_len(cache) -> int:
+    """The whole sequence length of a contiguous cache (its block times
+    the shards inside ``partitioning.cache_seq_split``)."""
+    split = P.cache_seq()
+    return cache["v"].shape[2] * (1 if split is None else split[2])
+
+
+def _local_positions(kv_positions, local: int):
+    """The positions of this process's slots of a ring cache: the block
+    of ``kv_positions`` (B, L) that the sequence split gives it."""
+    split = P.cache_seq()
+    if split is None or kv_positions is None:
+        return kv_positions
+    return P.local_part(kv_positions, 1, split[1] * local, local)
 
 
 def _running_k_scale(k_scale, k, pos, kv_len, base):
@@ -262,7 +324,7 @@ class AttentionBackend:
         slice, stored at 0."""
         if cache is None:
             return None
-        cache_len = cache["v"].shape[2]
+        cache_len = _cache_len(cache)
         if k.shape[2] > cache_len:
             k, v = k[:, :, -cache_len:], v[:, :, -cache_len:]
             index = 0
@@ -298,22 +360,36 @@ class DenseBackend(AttentionBackend):
         return {"k_pages": (shape, dtype), "v_pages": (shape, dtype)}
 
     def _write(self, cache, k, v, index, cfg):
-        _seq_insert(cache["k"], k, index)
-        _seq_insert(cache["v"], v, index)
+        _seq_write(cache["k"], k, index)
+        _seq_write(cache["v"], v, index)
         return cache
 
     def decode(self, q, cache, k, v, cache_index, kv_len, positions, cfg, *,
                kv_positions=None, window=None):
         cache = self.write_cache(cache, k, v, cache_index, cfg)
+        return self.attend(q, cache, kv_len, positions, cfg,
+                           kv_positions=kv_positions, window=window), cache
+
+    def attend(self, q, cache, kv_len, positions, cfg, *, kv_positions=None,
+               window=None):
+        """Attention of q (B, H, Sq, D) over the written contiguous
+        cache (``decode`` after its write); the shards' partials merged
+        inside ``partitioning.cache_seq_split``."""
         ck, cv = cache["k"], cache["v"]
-        kv_pos = (torch.arange(ck.shape[2], dtype=torch.int32,
-                               device=q.device)[None]
-                  if kv_positions is None else kv_positions)
+        split = P.cache_seq()
+        local = ck.shape[2]
+        kv_pos = _local_positions(kv_positions, local)
+        if kv_pos is None:
+            first = 0 if split is None else split[1] * local
+            kv_pos = torch.arange(first, first + local, dtype=torch.int32,
+                                  device=q.device)[None]
         kv_valid = kv_pos < kv_len.reshape(-1, 1)
-        out = attention(q, ck, cv, self.spec(cfg), causal=True,
-                        q_positions=positions, kv_positions=kv_pos,
-                        kv_valid=kv_valid, window=window or cfg.window)
-        return out, cache
+        kw = dict(q_positions=positions, kv_positions=kv_pos,
+                  kv_valid=kv_valid, window=window or cfg.window)
+        if split is None:
+            return attention(q, ck, cv, self.spec(cfg), causal=True, **kw)
+        return seq_split_attention(q, ck, cv, self.spec(cfg), split[0],
+                                   local * split[2], **kw)
 
     def _paged_write(self, cache, k, v, positions, page_table, kv_len=None):
         page = cache["k_pages"].shape[2]
@@ -412,8 +488,8 @@ class CamformerBackend(AttentionBackend):
         }
 
     def _write(self, cache, k, v, index, cfg):
-        _seq_insert(cache["k_packed"], bacam.pack_bits(sign_pm1(k)), index)
-        _seq_insert(cache["v"], v, index)
+        _seq_write(cache["k_packed"], bacam.pack_bits(sign_pm1(k)), index)
+        _seq_write(cache["v"], v, index)
         # running per-head key scale (softmax temperature bookkeeping),
         # over every written position, as the reference keeps it
         step = float(k.shape[2])
@@ -427,12 +503,31 @@ class CamformerBackend(AttentionBackend):
     def decode(self, q, cache, k, v, cache_index, kv_len, positions, cfg, *,
                kv_positions=None, window=None):
         cache = self.write_cache(cache, k, v, cache_index, cfg)
+        return self.attend(q, cache, kv_len, positions, cfg,
+                           kv_positions=kv_positions, window=window), cache
+
+    def attend(self, q, cache, kv_len, positions, cfg, *, kv_positions=None,
+               window=None):
+        """The CAM search of q over the written cache (``decode`` after
+        its write): across the shards inside
+        ``partitioning.cache_seq_split`` (``_shard_attend``), across the
+        ambient mesh for a B = 1 ``distributed_topk`` decode, else
+        local."""
+        del window  # the config's window, as the reference's
+        split = P.cache_seq()
+        if split is not None:
+            comm, shard, _ = split
+            local = cache["v"].shape[2]
+            kpos = _local_positions(kv_positions, local)
+            return self._shard_attend(q, cache["k_packed"], cache["v"],
+                                      cache["k_scale"], kv_len, positions,
+                                      cfg, comm, shard * local, kpos)
         if (cfg.distributed_topk and kv_positions is None
                 and q.shape[0] == 1):
             return self._distributed_attend(q, cache, kv_len, positions,
-                                            cfg), cache
+                                            cfg)
         return self._cache_attend(q, cache, kv_len, positions, cfg,
-                                  kv_positions=kv_positions), cache
+                                  kv_positions=kv_positions)
 
     def _cache_attend(self, q, cache, kv_len, positions, cfg,
                       kv_positions=None):
@@ -451,7 +546,7 @@ class CamformerBackend(AttentionBackend):
         """
         spec = self.spec(cfg)
         b, h, sq, d = q.shape
-        hkv = cfg.n_kv_heads
+        hkv = cache["v"].shape[1]
         g = h // hkv
         skv = cache["v"].shape[2]
         w = d // 32
@@ -508,8 +603,6 @@ class CamformerBackend(AttentionBackend):
         with no axis larger than 1 (a world of one), the search is the
         local one, as the reference's.
         """
-        import torch.distributed as dist
-
         from repro_torch.launch.mesh import get_mesh
 
         mesh = get_mesh()
@@ -520,11 +613,6 @@ class CamformerBackend(AttentionBackend):
         if not axes:
             return self._cache_attend(q, cache, kv_len, positions, cfg)
         coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
-        groups = [mesh.get_group(a) for a in axes]
-        spec = self.spec(cfg)
-        b, h, sq, d = q.shape
-        hkv = cfg.n_kv_heads
-        g = h // hkv
         skv = cache["v"].shape[2]
         n_shards = math.prod(sizes[a] for a in axes)
         if skv % n_shards:
@@ -536,39 +624,76 @@ class CamformerBackend(AttentionBackend):
             shard = shard * sizes[a] + coord[a]
         offset = shard * s_local
         rows = slice(offset, offset + s_local)
-        kp_l, v_l = cache["k_packed"][:, :, rows], cache["v"][:, :, rows]
+        comm = P.SeqComm([mesh.get_group(a) for a in axes])
+        return self._shard_attend(q, cache["k_packed"][:, :, rows],
+                                  cache["v"][:, :, rows], cache["k_scale"],
+                                  kv_len, positions, cfg, comm, offset,
+                                  None, use_kernel=False)
+
+    def _shard_attend(self, q, kp_l, v_l, k_scale, kv_len, positions, cfg,
+                      comm, offset, kv_positions=None, use_kernel=None):
+        """One shard's part of the CAM search over a sequence-split
+        cache: kp_l / v_l (B, H_kv, S_l, .) the shard's rows, which hold
+        positions ``offset + j`` (or ``kv_positions`` (B, S_l) for a
+        ring), k_scale (B, H_kv) the running key scale, the same on every
+        shard.  The shard scores its keys and runs the two-stage top-k
+        (the association kernel with ``use_kernel``, at positions and
+        lengths shifted by ``offset``; a ring takes the plain stage), the
+        shards exchange their k candidates (values and slot indices made
+        global, gathered in shard order through ``comm``), the global
+        top-k and its softmax are computed on every shard (ties to the
+        first occurrence, the lowest slot), and the contextualization is
+        a partial sum over the shard's V rows summed across the shards.
+        The candidates are the unsplit search's: each shard's groups are
+        whole groups of the cache."""
+        spec = self.spec(cfg)
+        if use_kernel is None:
+            use_kernel = spec.use_kernel and kv_positions is None
+        b, h, sq, d = q.shape
+        hkv, s_local = v_l.shape[1], v_l.shape[2]
+        g = h // hkv
+        w = d // 32
         qf = q.to(torch.float32)
         q_scale = had_scales(qf, keepdim=False)  # (B, H, Sq)
-        qp = bacam.pack_bits(sign_pm1(qf)).reshape(b, hkv, g * sq, d // 32)
-        kpos = offset + torch.arange(s_local, dtype=torch.int32,
-                                     device=q.device)
-        lv, li = _gather_topk(qp, kp_l,
-                              kv_len.reshape(b).to(torch.int32), positions,
-                              spec, d, g, cfg.window,
-                              kv_positions=kpos.expand(b, s_local))
-        li = li.to(torch.int32) + offset  # globalize
-        for grp in reversed(groups):  # innermost axis first: shard order
-            n = dist.get_world_size(grp)
-            parts_v = [torch.empty_like(lv) for _ in range(n)]
-            parts_i = [torch.empty_like(li) for _ in range(n)]
-            dist.all_gather(parts_v, lv.contiguous(), group=grp)
-            dist.all_gather(parts_i, li.contiguous(), group=grp)
-            lv, li = torch.cat(parts_v, dim=-1), torch.cat(parts_i, dim=-1)
-        top_v, sel = stable_topk(lv, spec.k_top)
+        qp = bacam.pack_bits(sign_pm1(qf)).reshape(b, hkv, g * sq, w)
+        kv_len = kv_len.reshape(b).to(torch.int32)
+        if use_kernel:
+            from repro_torch.kernels import ops as kops  # local: no cycle
+
+            pos = torch.clamp(positions.to(torch.int32) - offset, min=-1)
+            pos = pos[:, None, None, :].expand(b, hkv, g, sq).reshape(
+                b * hkv, g * sq)
+            kvl = torch.clamp(kv_len - offset, 0, s_local)[:, None].expand(
+                b, hkv).reshape(b * hkv)
+            cand_v, cand_i = kops.bacam_attention_scores_topk_packed(
+                qp.reshape(b * hkv, g * sq, w),
+                kp_l.reshape(b * hkv, s_local, w), pos, kvl, d=d,
+                group=spec.group_size, stage1_k=spec.stage1_k, causal=True,
+                window=cfg.window, sq=sq)
+            lv, sel = stable_topk(cand_v, min(spec.k_top, cand_v.shape[-1]))
+            li = torch.gather(cand_i, -1, sel).reshape(b, hkv, g * sq, -1)
+            lv = lv.reshape(b, hkv, g * sq, -1)
+        else:
+            kpos = (offset + torch.arange(s_local, dtype=torch.int32,
+                                          device=q.device)).expand(
+                b, s_local) if kv_positions is None else kv_positions
+            lv, li = _gather_topk(qp, kp_l, kv_len, positions, spec, d, g,
+                                  cfg.window, kv_positions=kpos)
+        li = li.to(torch.int32) + offset  # global slots
+        lv, li = comm.gather(lv, -1), comm.gather(li, -1)
+        top_v, sel = stable_topk(lv, min(spec.k_top, lv.shape[-1]))
         top_i = torch.gather(li, -1, sel)
         temp = (q_scale.reshape(b, hkv, g * sq)[..., None]
-                * cache["k_scale"][:, :, None, None])
-        w, valid = topk_softmax_weights(top_v, temp, 1.0 / (d**0.5))
+                * k_scale[:, :, None, None])
+        wts, valid = topk_softmax_weights(top_v, temp, 1.0 / (d**0.5))
         mine = (top_i >= offset) & (top_i < offset + s_local) & valid
         loc = torch.clamp(top_i - offset, 0, s_local - 1).long()
         v_sel = v_l[torch.arange(b, device=q.device)[:, None, None, None],
                     torch.arange(hkv, device=q.device)[None, :, None, None],
                     loc]
-        out = torch.einsum("bhrk,bhrkd->bhrd",
-                           torch.where(mine, w, torch.zeros_like(w)),
-                           v_sel.to(torch.float32))
-        for grp in groups:
-            dist.all_reduce(out, group=grp)
+        out = comm.sum(torch.einsum(
+            "bhrk,bhrkd->bhrd", torch.where(mine, wts, torch.zeros_like(wts)),
+            v_sel.to(torch.float32)))
         return out.reshape(b, hkv, g, sq, d).reshape(b, h, sq, d).to(q.dtype)
 
     def page_spec(self, cfg, n_pages, page_size, max_batch, dtype):

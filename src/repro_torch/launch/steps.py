@@ -20,7 +20,11 @@ argument's shapes and specs (``sharding/partitioning.py``) on a mesh, and
 ``named`` turns specs into DTensor placements on a live mesh.  With
 ``mesh=``, ``make_train_step`` is the sharded step (see its docstring),
 ``init_state`` gives a state of DTensor blocks, and ``batch_row_axes``
-names the mesh axes a batch's rows are split over.
+names the mesh axes a batch's rows are split over; ``make_prefill_step``
+and ``make_serve_step`` are the sharded serving steps
+(``_sharded_serve``) over ``serve_params`` / ``init_caches`` blocks and
+``local_rows``, and ``serve_shares`` runs every rank's share of them in
+one process.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ __all__ = ["METRIC_KEYS", "make_value_and_grad", "make_train_step",
            "init_state", "make_prefill_step", "make_serve_step",
            "params_specs", "state_specs", "batch_specs", "cache_specs_trees",
            "cache_axes", "named", "batch_row_axes", "shard_tree",
-           "map_specs"]
+           "map_specs", "serve_params", "init_caches", "local_rows",
+           "serve_shares"]
 
 METRIC_KEYS = ("loss", "grad_norm", "lr", "ce", "tokens",
                "moe_aux_loss", "moe_drop_frac")
@@ -218,16 +223,18 @@ def _model_dim(spec):
     return None
 
 
-def model_shares(md, cfg, model: int, seq: bool = False):
+def model_shares(md, cfg, model: int, seq: bool = False,
+                 serve: bool = False):
     """(plan, dims) of the ``model`` split over a ``model`` axis of size
-    ``model`` (the ``tp`` profile's specs on a (1, model) mesh):
+    ``model`` (the ``tp`` profile's specs on a (1, model) mesh; with
+    ``serve`` the served weights' ``SERVE_PARAM_RULES``):
     ``model_split_plan``'s tree and, for each leaf, the dimension its
     ``"split"`` block is cut along (None for a leaf used whole), for
     ``share_params``."""
     from repro_torch.launch.mesh import MeshShape
 
     _, specs = params_specs(md, cfg, MeshShape(("data", "model"),
-                                               (1, model)))
+                                               (1, model)), serve=serve)
     plan = model_split_plan(
         cfg, map_specs(lambda sp: _model_dim(sp) is not None, specs), model,
         seq)
@@ -380,7 +387,13 @@ def init_state(cfg, opt, *, seed: int = 0, device="cuda", mesh=None) -> dict:
                                           (), dtype=torch.int32)}}
 
 
-def make_prefill_step(md, cfg):
+def make_prefill_step(md, cfg, mesh=None):
+    """``prefill_step(params, batch, caches) -> (logits, caches)``: the
+    prompt from position 0, the caches written in place, the last
+    position's logits (B, V_pad) float32.  With a live ``mesh`` the
+    sharded step (``_sharded_serve``)."""
+    if mesh is not None:
+        return _sharded_serve(md, cfg, mesh, "prefill")
     dt = dtype_of(cfg)
 
     def prefill_step(params, batch, caches):
@@ -389,7 +402,12 @@ def make_prefill_step(md, cfg):
     return prefill_step
 
 
-def make_serve_step(md, cfg):
+def make_serve_step(md, cfg, mesh=None):
+    """``serve_step(params, tokens, pos, kv_len, caches) -> (logits,
+    caches)``: one decode step, tokens / pos / kv_len (B,).  With a live
+    ``mesh`` the sharded step (``_sharded_serve``)."""
+    if mesh is not None:
+        return _sharded_serve(md, cfg, mesh, "decode")
     dt = dtype_of(cfg)
 
     def serve_step(params, tokens, pos, kv_len, caches):
@@ -397,6 +415,336 @@ def make_serve_step(md, cfg):
                          caches, cfg)
 
     return serve_step
+
+
+# cache leaves whose sequence split the sharded serving steps undo around
+# the call (all-gathered, then this process's block written back): the
+# encoder memory every step rereads whole, and a ring's slot positions
+_SEQ_GATHERED = ("memory", "attn_pos")
+
+
+def _leaf_names(tree, name=""):
+    """Each leaf's key, in the structure of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _leaf_names(v, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_leaf_names(v, name) for v in tree]
+    return name
+
+
+def _seq_dim(name: str):
+    """The sequence dim of a cache leaf (None: it has none)."""
+    axes = _CACHE_AXES[name]
+    return axes.index("kv_seq") if "kv_seq" in axes else None
+
+
+def _serve_split(mesh, row_axes) -> bool:
+    """Whether the serving steps split the compute over ``model``: the
+    mesh has the axis and the batch's rows do not take it (under the
+    ``dp`` profile a batch that every axis divides does; each process
+    then runs its rows whole)."""
+    return "model" in mesh.mesh_dim_names and "model" not in row_axes
+
+
+def _sharded_serve(md, cfg, mesh, kind):
+    """The prefill (``kind`` "prefill") or decode step on ``mesh``, one
+    process a device, as the reference's jitted steps with explicit
+    shardings (its ``launch/dryrun.py``):
+
+      * ``params`` are DTensor blocks under ``SERVE_PARAM_RULES``
+        (``serve_params``), cast to the compute type; under the split a
+        block ``model_split_plan`` keeps split is used as it is, every
+        other leaf is gathered whole;
+      * ``caches`` are DTensor blocks under ``CACHE_RULES``
+        (``init_caches``), written in place: heads over ``model`` where
+        they divide, the sequence over what the batch and heads left
+        (``kv_seq``), the recurrent states' channels and heads over
+        ``model``; ``_SEQ_GATHERED`` leaves are gathered whole along the
+        sequence around the call and this process's block written back;
+      * the batch (``batch`` dict, or tokens / pos / kv_len) is this
+        process's rows over ``batch_row_axes`` of the caches' batch
+        (``local_rows``);
+      * the logits come back as DTensor blocks on ``("batch", "vocab")``
+        under ``ACT_RULES``: ``full_tensor()`` is the unsharded step's.
+
+    The model runs inside ``partitioning.model_split`` when
+    ``_serve_split`` (each process its heads, or under ``q_seq`` its
+    query rows, MLP columns, experts, vocabulary rows, RG-LRU channels,
+    RWKV-6 heads) and inside ``partitioning.cache_seq_split`` over the
+    attention caches' sequence axes, under ``torch.no_grad``.  Every
+    process of the mesh calls the step with the same global shapes."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    dt = dtype_of(cfg)
+    names = tuple(mesh.mesh_dim_names)
+    sizes = P.axis_sizes(mesh)
+    on_model = lambda p: p.placements[names.index("model")].is_shard()
+    plans = {}
+
+    def gathered(p, h):  # the placements a parameter is used at
+        return tuple(pl if a == "model" and h == "split" else Replicate()
+                     for a, pl in zip(names, p.placements))
+
+    def seq_axes(c, dim):  # the mesh axes splitting dim of a cache leaf
+        return tuple(a for a, pl in zip(names, c.placements)
+                     if isinstance(pl, Shard) and pl.dim == dim)
+
+    def serve_step(params, *args):
+        caches = args[-1]
+        rows = _global_batch(caches)
+        row_axes = batch_row_axes(mesh, rows)
+        split = _serve_split(mesh, row_axes)
+        columns = split and _local_columns(cfg, args)
+        if (split, columns) not in plans:
+            plans[split, columns] = (model_split_plan(
+                cfg, tree_map(on_model, params), sizes["model"])
+                if split else tree_map(lambda _: "whole", params))
+            if columns:
+                plans[split, columns] = _keep_columns(
+                    plans[split, columns], tree_map(on_model, params), kind)
+        plan = plans[split, columns]
+        leaf_names = _leaf_names(caches)
+        attn = set()
+        back = []  # (DTensor leaf, whole-along-seq local tensor, dim)
+
+        def local(c, name):
+            dim = _seq_dim(name)
+            if name not in _SEQ_GATHERED or not seq_axes(c, dim):
+                if name in ("k", "v", "k_packed"):
+                    attn.add(seq_axes(c, dim))
+                return c.to_local()
+            whole = c.redistribute(mesh, tuple(
+                Replicate() if a in seq_axes(c, dim) else pl
+                for a, pl in zip(names, c.placements))).to_local()
+            back.append((c, whole, dim))
+            return whole
+
+        with torch.no_grad():
+            full = tree_map(lambda p, h: p.to(dt).redistribute(
+                mesh, gathered(p, h)).to_local(), params, plan)
+            given = map_specs(local, caches, leaf_names)
+            local_caches = map_specs(lambda t: t, given)
+            if len(attn) > 1:
+                raise ValueError(f"the attention caches split their "
+                                 f"sequence differently: {sorted(attn)}")
+            seq = attn.pop() if attn else ()
+            ctx = P.model_split(mesh) if split else contextlib.nullcontext()
+            with ctx, P.cache_seq_split(mesh, seq):
+                if kind == "prefill":
+                    logits, _ = md.prefill(full, args[0], local_caches, cfg)
+                else:
+                    logits, _ = md.decode(full, *args[:3], local_caches,
+                                          cfg)
+            _write_back(given, local_caches)
+            for c, whole, dim in back:  # this process's block of the seq
+                n = c.to_local().shape[dim]
+                shard = 0
+                for a in seq_axes(c, dim):
+                    shard = shard * sizes[a] + mesh.get_local_rank(a)
+                c.to_local().copy_(whole.narrow(dim, shard * n, n))
+        spec = P.resolve_spec(("batch", "vocab"), (rows, cfg.padded_vocab),
+                              mesh, P.ACT_RULES)
+        return DTensor.from_local(logits, mesh, P.placements(spec, mesh),
+                                  run_check=False), caches
+
+    return serve_step
+
+
+def _write_back(given, after):
+    """Copy into each tensor of ``given`` the tensor a step left at its
+    place in ``after`` where the step replaced it (a backend may assign
+    a cache leaf anew, as camformer's running ``k_scale``)."""
+    map_specs(lambda g, a: None if a is g else g.copy_(a), given, after)
+
+
+def _tokens(args) -> int:
+    """This process's token rows in a serving step's inputs: the batch
+    dict's tokens and prefix embeddings (prefill), or the decode
+    tokens."""
+    first = args[0]
+    if not isinstance(first, dict):
+        return first.shape[0]
+    rows, length = first["tokens"].shape
+    return rows * (length + (first["image_embeds"].shape[1]
+                             if "image_embeds" in first else 0))
+
+
+def _local_columns(cfg, args) -> bool:
+    """Whether a serving step keeps the attention projections' stored
+    column blocks where the heads do not divide (``_keep_columns``):
+    with fewer token rows a process than d_model, all-gathering the
+    projected features moves less than gathering the weights (tokens x
+    columns against d_model x columns elements)."""
+    return _tokens(args) < cfg.d_model
+
+
+def _keep_columns(plan, on_model, kind):
+    """The serving plan with self-attention's projections kept as their
+    stored column blocks (split along ``model`` in storage) where the
+    train step's plan gathers them whole: ``wk`` / ``wv`` under
+    ``qheads`` (``"partial"``), and in a decode step, whose single query
+    row ``q_seq`` cannot split, every projection of an attention run
+    whole (``"whole"``).  The model code then projects its columns and
+    all-gathers the features, and sums ``wo``'s row blocks
+    (``models/attention.py``)."""
+    def keep(name, how, on):
+        if not on or how == "split":
+            return how
+        if name in ("wk", "wv") and how == "partial":
+            return "split"
+        if (kind == "decode" and how == "whole"
+                and name in ("wq", "wk", "wv", "wo")):
+            return "split"
+        return how
+
+    def walk(node, on, key=""):
+        if isinstance(node, list):
+            return [walk(n, o, key) for n, o in zip(node, on)]
+        if not isinstance(node, dict):
+            return node
+        if key in ("attn", "self_attn") and "wq" in node:
+            return {k: keep(k, h, on[k]) for k, h in node.items()}
+        return {k: walk(v, on[k], k) for k, v in node.items()}
+
+    return walk(plan, on_model)
+
+
+def _global_batch(caches) -> int:
+    """The global batch of a tree of cache DTensors (their global
+    shapes), read off a leaf with a ``batch`` axis."""
+    found = []
+
+    def visit(c, name):
+        axes = _CACHE_AXES[name]
+        if not found and "batch" in axes:
+            found.append(c.shape[axes.index("batch")])
+
+    map_specs(visit, caches, _leaf_names(caches))
+    return found[0]
+
+
+def serve_params(params, md, cfg, mesh):
+    """Whole served weights (the same on every process) -> DTensors of
+    this process's blocks under ``SERVE_PARAM_RULES``."""
+    return shard_tree(params, mesh, named(
+        mesh, params_specs(md, cfg, mesh, serve=True)[1]))
+
+
+def init_caches(md, cfg, batch: int, cache_len: int, mesh=None,
+                device="cuda"):
+    """Zero caches for ``batch`` rows of ``cache_len`` (``md.cache_specs``):
+    whole tensors, or with a live ``mesh`` DTensors of this process's
+    blocks under ``CACHE_RULES`` (``cache_specs_trees``), allocated at
+    the block's size."""
+    from repro_torch.models.transformer import init_pools
+
+    if mesh is None:
+        return init_pools(md.cache_specs(cfg, batch, cache_len), device)
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    tree, specs = cache_specs_trees(md, cfg, batch, cache_len, mesh)
+
+    def block(leaf, spec):
+        shape, dtype = leaf
+        plc = P.placements(spec, mesh)
+        local, _ = compute_local_shape_and_global_offset(tuple(shape), mesh,
+                                                         plc)
+        return DTensor.from_local(
+            torch.zeros(local, dtype=dtype, device=device), mesh, plc,
+            run_check=False, shape=torch.Size(shape),
+            stride=_contiguous_stride(shape))
+
+    return map_specs(block, tree, specs)
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def local_rows(tree, mesh, global_batch: int):
+    """This process's rows (dim 0) of whole batch tensors (a tensor or a
+    dict of them), split over ``batch_row_axes(mesh, global_batch)``
+    major-to-minor."""
+    axes = batch_row_axes(mesh, global_batch)
+    sizes = P.axis_sizes(mesh)
+    n = math.prod(sizes[a] for a in axes)
+    k = 0
+    for a in axes:
+        k = k * sizes[a] + mesh.get_local_rank(a)
+    cut = lambda t: t.narrow(0, k * (t.shape[0] // n), t.shape[0] // n)
+    return {key: cut(t) for key, t in tree.items()} \
+        if isinstance(tree, dict) else cut(tree)
+
+
+def serve_shares(md, cfg, kind, params, args, caches, model: int):
+    """Every rank's share of the sharded serving step's split over a
+    ``model`` axis of ``model`` in turn in this process (share mode:
+    ``partitioning.run_shares``), from whole ``params`` and ``caches``
+    and the whole batch ``args`` (``(batch,)`` for ``kind`` "prefill",
+    ``(tokens, pos, kv_len)`` for "decode"), on a (1, model) mesh's
+    specs: each rank runs on its parameter blocks (``share_params``
+    with ``model_shares(..., serve=True)``) and on its blocks of the
+    caches split along ``model`` (views: its writes land in ``caches``),
+    the attention caches' sequence split along ``model`` inside
+    ``cache_seq_split`` where ``CACHE_RULES`` puts it there.  A leaf not
+    split along ``model`` (or a ``_SEQ_GATHERED`` one) is each rank's
+    own copy, rank 0's written back after.  Returns each rank's logits
+    (its vocabulary block where the vocabulary splits)."""
+    from repro_torch.launch.mesh import MeshShape
+
+    mesh = MeshShape(("data", "model"), (1, model))
+    plan, dims = model_shares(md, cfg, model, serve=True)
+    if _local_columns(cfg, args):  # as the live step chooses
+        _, specs = params_specs(md, cfg, mesh, serve=True)
+        plan = _keep_columns(plan, map_specs(
+            lambda sp: _model_dim(sp) is not None, specs), kind)
+        dims = map_specs(lambda sp, h: _model_dim(sp) if h == "split"
+                         else None, specs, plan)
+    shapes = map_specs(lambda leaf: tuple(leaf.shape), caches)
+    cspecs = P.tree_pspecs(cache_axes(shapes), shapes, mesh,
+                           P.CACHE_RULES)
+    cdims = map_specs(_model_dim, cspecs)
+    names = _leaf_names(caches)
+    attn = set()
+    map_specs(lambda d, n: attn.add(d == _seq_dim(n))
+              if n in ("k", "v", "k_packed") else None, cdims, names)
+    seq = ("model",) if True in attn else ()
+    copies = []
+
+    def block(t, d, n, rank):
+        if d is None or n in _SEQ_GATHERED:
+            c = t.clone()
+            copies.append((rank, t, c))
+            return c
+        size = t.shape[d] // model
+        return t.narrow(d, rank * size, size)
+
+    def share(rank):
+        given = map_specs(lambda t, d, n: block(t, d, n, rank), caches,
+                          cdims, names)
+        mine = map_specs(lambda t: t, given)
+        p = share_params(params, dims, rank, model)
+        if kind == "prefill":
+            out = md.prefill(p, args[0], mine, cfg)[0]
+        else:
+            out = md.decode(p, *args, mine, cfg)[0]
+        _write_back(given, mine)
+        return out
+
+    dt = dtype_of(cfg)
+    params = cast_params(params, dt)
+    with torch.no_grad(), P.cache_seq_split(None, seq):
+        outs = P.run_shares(share, model)
+    for rank, t, c in copies:
+        if rank == 0:
+            t.copy_(c)
+    return outs
 
 
 # ---------------- sharding assembly ----------------

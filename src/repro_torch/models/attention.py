@@ -12,7 +12,7 @@ from repro_torch.models.layers import rope
 from repro_torch.sharding import partitioning as P
 
 __all__ = ["attn_shapes", "attn_cache_spec", "attention_block",
-           "tp_local_decode", "tp_gather", "attn_strategy", "select_kv"]
+           "tp_local_decode", "tp_gather", "attn_strategy"]
 
 
 def _resolve_backend(cfg, backend=None) -> AttentionBackend:
@@ -109,8 +109,12 @@ def attn_strategy(cfg, model=None, training: bool = True) -> str:
     ``att_kv_seq`` key, so its resolver leaves those dims unsharded and
     the attention runs whole, replicated over ``model``: the train step
     here runs it on whole weights too (``model_split_plan``'s
-    ``"whole"``).  ``q_seq`` belongs to the sharded serving steps, which
-    are not ported."""
+    ``"whole"``).  ``q_seq`` is the sharded serving steps' (launch/
+    steps.py): a prompt chunk's query rows split over ``model``
+    (``att_q_seq``) when the axis divides them, K and V whole, softmax
+    and AV local, the output rows entering ``wo`` split and gathered
+    after it (``attention_block``); a decode row, or a chunk the axis
+    does not divide, runs whole."""
     if model is None:
         return "none"
     if cfg.n_kv_heads % model == 0:
@@ -120,57 +124,103 @@ def attn_strategy(cfg, model=None, training: bool = True) -> str:
     return "kv_seq" if training else "q_seq"
 
 
-def select_kv(k, v, q0: int, hq: int, cfg):
-    """Under ``qheads`` (whole K and V, ``hq`` local q heads from q head
-    ``q0``): the kv heads of the local q heads when the split follows the
-    groups, else one copy of its kv head for each local q head."""
+def _heads_of(t, q0: int, hq: int, cfg):
+    """Under ``qheads`` (``t``'s dim 1 holds every kv head, ``hq`` local q
+    heads from q head ``q0``): the kv heads of the local q heads when the
+    split follows the groups, else one copy of its kv head for each local
+    q head."""
     g = cfg.n_heads // cfg.n_kv_heads
     if q0 % g == 0 and hq % g == 0:
-        return k[:, q0 // g:(q0 + hq) // g], v[:, q0 // g:(q0 + hq) // g]
-    idx = torch.arange(q0, q0 + hq, device=k.device) // g
-    return k[:, idx], v[:, idx]
+        return t[:, q0 // g:(q0 + hq) // g]
+    return t[:, torch.arange(q0, q0 + hq, device=t.device) // g]
 
 
 def _project(p, x, cfg, split: bool = False, seq: bool = False,
-             cross_kv=None):
+             cross_kv=None, q_rows: bool = False, q_cols: bool = False):
     """QKV projections (+ optional bias) into (B, heads, S, head_dim);
     with ``cross_kv`` (cross-attention) K and V are those given.
 
-    With ``split`` (training inside ``partitioning.model_split``): the
-    heads of this process.  ``wq`` (and ``wk``/``wv`` under ``heads``)
-    then hold this process's columns and the biases are sliced to them;
-    under ``qheads`` K and V are whole, and each local q head takes its
-    kv head's (``select_kv``).  With ``seq`` x holds this process's rows
-    of the split residual stream and the region runs on the gathered
-    sequence (``partitioning.region_in``)."""
+    With ``split`` (inside ``partitioning.model_split``): the heads of
+    this process.  ``wq`` (and ``wk``/``wv`` under ``heads``) then hold
+    this process's columns and the biases are sliced to them; under
+    ``qheads`` K and V come back whole (all kv heads, as the cache holds
+    them) and ``attention_block`` gives each local q head its kv head's
+    (``_heads_of``).  With ``seq`` x holds this process's rows of the
+    split residual stream and the region runs on the gathered sequence
+    (``partitioning.region_in``).  With ``q_rows`` (``q_seq``) Q is
+    projected from this process's rows of x only.
+
+    A serving step may keep a projection's stored column block where
+    its heads do not divide (launch/steps.py, few token rows): this
+    process then projects its columns and the features are all-gathered
+    (``partitioning.gather_split``), whole Q (``q_cols``) or whole K and
+    V on every process."""
     dt, d = x.dtype, cfg.head_dim
-    hq = p["wq"].shape[1] // d
-    rank = P.split_rank()[0] if split else 0
-    q0 = rank * hq if hq < cfg.n_heads else 0
+    rank = P.split_rank()[0] if P.split_rank() is not None else 0
     x = P.region_in(x, split, seq)
     b, s, _ = x.shape
-    q = x @ p["wq"].to(dt)
-    if "bq" in p:
-        q = q + p["bq"][q0 * d:(q0 + hq) * d].to(dt)
-    q = q.reshape(b, s, hq, d).transpose(1, 2)
+    xq = P.local_seq(x) if q_rows else x
+    q = xq @ p["wq"].to(dt)
+    cols = p["wq"].shape[1]
+    if q_cols:  # this process's columns of Q, gathered whole
+        if "bq" in p:
+            q = q + p["bq"][rank * cols:(rank + 1) * cols].to(dt)
+        P.note_split("attn_q_cols", cols)
+        q = P.gather_split(q, -1)
+        hq, q0 = cfg.n_heads, 0
+    else:
+        hq = cols // d
+        q0 = rank * hq if hq < cfg.n_heads else 0
+        if "bq" in p:
+            q = q + p["bq"][q0 * d:(q0 + hq) * d].to(dt)
+    q = q.reshape(b, xq.shape[1], hq, d).transpose(1, 2)
     if cross_kv is None:
-        hk = p["wk"].shape[1] // d
-        k0 = rank * hk if hk < cfg.n_kv_heads else 0
+        kc = p["wk"].shape[1]
+        c0 = rank * kc if kc < cfg.kv_dim else 0
         k = x @ p["wk"].to(dt)
         v = x @ p["wv"].to(dt)
         if "bk" in p:
-            k = k + p["bk"][k0 * d:(k0 + hk) * d].to(dt)
-            v = v + p["bv"][k0 * d:(k0 + hk) * d].to(dt)
-        k = k.reshape(b, s, hk, d).transpose(1, 2)
-        v = v.reshape(b, s, hk, d).transpose(1, 2)
+            k = k + p["bk"][c0:c0 + kc].to(dt)
+            v = v + p["bv"][c0:c0 + kc].to(dt)
+        if kc < cfg.kv_dim and cfg.n_kv_heads % P.split_rank()[1]:
+            P.note_split("attn_kv_cols", kc)  # whole K and V everywhere
+            k, v = P.gather_split(k, -1), P.gather_split(v, -1)
+        k = k.reshape(b, s, -1, d).transpose(1, 2)
+        v = v.reshape(b, s, -1, d).transpose(1, 2)
     else:
         k, v = cross_kv
-    if hq < cfg.n_heads and k.shape[1] == cfg.n_kv_heads:  # qheads
-        k, v = select_kv(k, v, q0, hq, cfg)
     if split:
         P.note_split("attn_q_heads", hq)
-        P.note_split("attn_kv_heads", k.shape[1])
+        P.note_split("attn_kv_heads", (
+            _heads_of(k, q0, hq, cfg) if _qheads(hq, k, cfg) else k).shape[1])
     return q, k, v
+
+
+def _qheads(hq: int, k, cfg) -> bool:
+    """Whether ``hq`` local q heads run against whole K/V ``k``."""
+    return hq < cfg.n_heads and k.shape[1] == cfg.n_kv_heads
+
+
+def _attend_cache(bk, q, cache, heads, q0, kv_len, q_pos, cfg,
+                  kv_positions, window):
+    """The backend's attention of q over the written contiguous cache.
+    Under ``qheads`` the cache holds every kv head: each local q head
+    reads its kv head's (``heads``), unless the cache's sequence splits
+    along ``model`` too, where the processes of a shard group hold
+    different q heads: every process then gathers all the q heads
+    (B, H, Sq, D), merges the shards' attention for all of them and
+    keeps its own."""
+    if heads(cache["v"]) is cache["v"]:
+        return bk.attend(q, cache, kv_len, q_pos, cfg,
+                         kv_positions=kv_positions, window=window)
+    if P.cache_seq_over_model():
+        hq = q.shape[1]
+        out = bk.attend(P.gather_split(q, 1), cache, kv_len, q_pos, cfg,
+                        kv_positions=kv_positions, window=window)
+        return out[:, q0:q0 + hq]
+    view = {n: heads(t) if t.dim() > 1 else t for n, t in cache.items()}
+    return bk.attend(q, view, kv_len, q_pos, cfg, kv_positions=kv_positions,
+                     window=window)
 
 
 def attention_block(p, x, cfg, *, positions, cache=None, cache_index=None,
@@ -204,25 +254,53 @@ def attention_block(p, x, cfg, *, positions, cache=None, cache_index=None,
     K/V of train and prefill; decode is causal.  Caches are updated in
     place.
 
-    Training inside ``partitioning.model_split`` runs this process's
-    heads (``_project``), cross-attention too (its K/V projected from
-    the memory with this process's ``wk``/``wv`` columns, models/
-    encdec.py), and sums the partial outputs over ``model``; with
-    ``seq`` (the decoder-only stack's ``res_seq``) x and the output are
-    this process's rows of the residual stream.
+    Inside ``partitioning.model_split`` (the train step, and the sharded
+    serving steps of launch/steps.py) this runs this process's heads
+    (``_project``), cross-attention too (its K/V projected from the
+    memory with this process's ``wk``/``wv`` columns, models/encdec.py),
+    and sums the partial outputs over ``model``; with ``seq`` (the
+    decoder-only stack's ``res_seq``) x and the output are this
+    process's rows of the residual stream.  A contiguous cache then
+    holds this process's kv heads (``heads``) or all of them
+    (``qheads``: written whole, each local q head reading its kv head),
+    and possibly only its block of the sequence
+    (``partitioning.cache_seq_split``: the backend writes the positions
+    the block holds and merges the shards' attention).  A serving chunk
+    whose heads do not divide splits its query rows (``q_seq``:
+    ``partitioning.q_seq_here``): Q and the output rows are this
+    process's, K and V whole and written whole, and the rows are
+    all-gathered after ``wo``.
     """
     bk = _resolve_backend(cfg, backend)
-    # training inside ``model_split``: this process's heads
-    split = cache is None and P.split_here(p["wq"].shape[1], cfg.q_dim)
-    if cache is None and not split and P.split_rank() is not None:
+    at = P.split_rank()
+    # a serving step kept wq's stored column block though the heads do
+    # not divide (launch/steps.py): the projections' columns, whole heads
+    cols = (at is not None and p["wq"].shape[1] < cfg.q_dim
+            and cfg.n_heads % at[1] != 0)
+    split = not cols and P.split_here(p["wq"].shape[1], cfg.q_dim)
+    qseq = (cache is not None and not seq and not cols
+            and P.q_seq_here(x.shape[1], split))
+    if qseq:
+        P.note_split("attn_q_rows", x.shape[1] // at[1])
+    elif not split and at is not None:
         P.note_split("attn_whole_heads", cfg.n_heads)  # kv_seq: whole
-    q, k, v = _project(p, x, cfg, split, seq, cross_kv)
+    q, k, v = _project(p, x, cfg, split, seq, cross_kv, q_rows=qseq,
+                       q_cols=cols)
     b, s = q.shape[0], q.shape[2]
+    hq = q.shape[1]
+    q0 = P.split_rank()[0] * hq if split and hq < cfg.n_heads else 0
+    heads = (lambda t: _heads_of(t, q0, hq, cfg)) if _qheads(hq, k, cfg) \
+        else (lambda t: t)
+    if qseq:  # this process's query rows
+        rows = s * P.split_rank()[0]
+        q_pos = positions[:, rows:rows + s]
+    else:
+        q_pos = positions
     if cross_kv is not None:
-        out = bk.prefill(q, k, v, cfg, causal=False)
+        out = bk.prefill(q, heads(k), heads(v), cfg, causal=False)
     else:
         if cfg.use_rope:
-            q = rope(q, positions, cfg.rope_theta)
+            q = rope(q, q_pos, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
         if page_table is not None and cache is not None:
             if kv_len is None:
@@ -241,15 +319,20 @@ def attention_block(p, x, cfg, *, positions, cache=None, cache_index=None,
             raise ValueError("paged cache needs page_table and kv_len")
         else:
             index = 0 if cache_index is None else cache_index
+            cache = bk.write_cache(cache, k, v, index, cfg)
             if cache is not None and kv_len is not None:
-                out, cache = bk.decode(q, cache, k, v, index, kv_len,
-                                       positions, cfg,
-                                       kv_positions=kv_positions,
-                                       window=window)
+                out = _attend_cache(bk, q, cache, heads, q0, kv_len, q_pos,
+                                    cfg, kv_positions, window)
             else:
-                cache = bk.write_cache(cache, k, v, index, cfg)
-                out = bk.prefill(q, k, v, cfg, causal=causal,
-                                 positions=positions,
+                out = bk.prefill(q, heads(k), heads(v), cfg, causal=causal,
+                                 positions=q_pos,
                                  window=window or cfg.window)
-    out = out.transpose(1, 2).reshape(b, s, -1) @ p["wo"].to(x.dtype)
+    out = out.transpose(1, 2).reshape(b, s, -1)
+    if cols:  # wo's rows of this process's columns; the parts summed
+        r = p["wo"].shape[0]
+        return P.exit_split(out[..., at[0] * r:(at[0] + 1) * r]
+                            @ p["wo"].to(x.dtype)), cache
+    out = out @ p["wo"].to(x.dtype)
+    if qseq:
+        return P.whole_seq(out), cache
     return P.region_out(out, split, seq), cache

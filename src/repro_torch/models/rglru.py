@@ -136,7 +136,9 @@ def _apply_rec(p, x, cfg, state):
     rl = p["w_x"].shape[1]  # the rnn channels run here
     split = P.split_here(rl, cfg.rnn_width)
     c0 = P.split_rank()[0] * rl if split and rl < cfg.rnn_width else 0
-    here = lambda t: t[..., c0:c0 + rl]  # a whole vector's local channels
+    # a whole vector's local channels (a state a sharded serving step
+    # hands in is already this process's block)
+    here = lambda t: P.local_part(t, t.dim() - 1, c0, rl)
     h_in = L.apply_norm(p["ln"], x, cfg)
     if split:
         P.note_split("rnn", rl)
@@ -166,9 +168,11 @@ def _rec_layer(p, x, cfg, state, train):
     """``_apply_rec``, writing the new state into ``state`` in place
     unless ``train``."""
     x, conv, h = _apply_rec(p, x, cfg, state)
-    if not train:
-        state["conv"].copy_(conv)
-        state["h"].copy_(h)
+    if not train:  # the channels this process ran
+        rl = h.shape[-1]
+        c0 = P.split_rank()[0] * rl if rl < state["h"].shape[-1] else 0
+        P.local_part(state["conv"], 2, c0, rl).copy_(conv)
+        P.local_part(state["h"], 1, c0, rl).copy_(h)
     return x
 
 

@@ -136,7 +136,8 @@ def _time_mix(p, x, cfg, x_prev, state):
     dw = (xw @ p["w_lora_a"].to(dt)) @ p["w_lora_b"][:, c0:c0 + dl].to(dt)
     w = torch.exp(-torch.exp(p["w0"][c0:c0 + dl].to(f32) + dw.to(f32)))
     y, state = _wkv(r.to(f32), k.to(f32), v.to(f32), w.reshape(b, s, h, c),
-                    p["u"].to(f32), state[:, c0 // c:c0 // c + h].to(f32))
+                    p["u"].to(f32),
+                    P.local_part(state, 1, c0 // c, h).to(f32))
     # per-head group norm
     y = y * torch.rsqrt((y**2).mean(dim=-1, keepdim=True) + 1e-6)
     y = (y.reshape(b, s, dl) * p["ln_x"][c0:c0 + dl].to(f32)).to(dt)
@@ -204,7 +205,10 @@ def _forward(params, tokens, cfg, caches):
         if not train:
             state["tm_prev"].copy_(tm_prev)
             state["cm_prev"].copy_(cm_prev)
-            state["wkv"].copy_(wkv)
+            h = wkv.shape[1]  # the heads this process ran
+            P.local_part(state["wkv"], 1, P.split_rank()[0] * h
+                         if h < state["wkv"].shape[1] else 0,
+                         h).copy_(wkv)
     return L.apply_norm(params["ln_f"], x, cfg)
 
 

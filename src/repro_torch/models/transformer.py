@@ -20,6 +20,10 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+# imported here, not lazily by the first checkpoint call: that import's
+# frames would hold the first remat step's frames (and tensors) in a
+# reference cycle until the cycle collector ran
+import torch._dynamo  # noqa: F401
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.backend import backends_for
@@ -254,11 +258,17 @@ def last_logits(params, x, cfg):
 
 def _head_logits(params, last, cfg):
     """Vocabulary logits (..., V_pad) float32 for final hidden states
-    (..., d): computed in the compute type, vocab pad columns at -1e9."""
+    (..., d): computed in the compute type, vocab pad columns at -1e9.
+    Inside ``partitioning.model_split`` with the vocabulary split (the
+    sharded serving steps), this process's block of the columns, the
+    logits of its vocabulary rows."""
     head = L.head_matrix(params["embed"], cfg, last.dtype)
+    split, v0 = L._vocab_split(head.shape[-1], cfg)
+    if split:
+        last = P.enter_split(last)
     logits = (last @ head).to(torch.float32)
-    if logits.shape[-1] > cfg.vocab:  # vocab-padding columns never sampled
-        logits[..., cfg.vocab:] = -1e9
+    if logits.shape[-1] + v0 > cfg.vocab:  # padding columns never sampled
+        logits[..., max(cfg.vocab - v0, 0):] = -1e9
     return logits
 
 

@@ -266,6 +266,12 @@ class EngineRunner(threading.Thread):
                 with self._lock:
                     self._live.discard(out.rid)
             _sink(out)
+            if out.finished:
+                # the request outlives its stream in the engine's records:
+                # unhook this closure (it holds the runner and, through the
+                # sink, the event loop), so no reference cycle keeps the
+                # engine alive after ``stop``
+                _req.on_token = None
 
         req.on_token = on_token
         self._submit_q.append(req)
@@ -491,6 +497,10 @@ class Gateway:
         if self._server is not None:
             self._server.close()
             await self._server.wait_closed()
+            # the server's protocol factory holds ``self._handle``: drop
+            # it, so no reference cycle keeps the gateway (and through
+            # it the engine) alive once it is closed
+            self._server = None
         if not self.runner.stop(timeout):
             raise RuntimeError(
                 "engine thread did not stop cleanly (join timed out)"

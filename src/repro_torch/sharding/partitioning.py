@@ -61,6 +61,21 @@ count and no NCCL, so the card checks every degree's shares against the
 unsplit code in one process (``chip_smoke.py`` phase 14).  A share's
 state is its thread's: no block is recomputed inside share mode
 (``models/transformer.run_block``).
+
+The sharded serving steps (``launch/steps.make_prefill_step`` /
+``make_serve_step`` with a mesh) run inside ``model_split`` too, under
+``torch.no_grad``: the collectives then record no autograd state.  Two
+things are theirs alone.  ``q_seq_here`` says whether a prompt chunk's
+attention splits its query rows over ``model`` (the reference's
+``q_seq``, for heads that do not divide): the region enters through
+``local_seq`` (this process's Sq / m rows) and leaves through
+``whole_seq`` (the rows all-gathered).  ``cache_seq_split`` marks the
+contiguous attention caches inside as this process's block of the
+sequence (``CACHE_RULES["kv_seq"]``, over whatever mesh axes the batch
+and the heads left): ``cache_seq`` gives the block's shard index, the
+number of shards and a ``SeqComm`` whose ``gather`` / ``sum`` / ``max``
+combine the shards' tensors (core/backend.py merges the shards'
+attention with them).
 """
 
 from __future__ import annotations
@@ -80,7 +95,9 @@ __all__ = [
     "split_rank", "split_here", "note_split", "enter_split", "exit_split",
     "model_max", "SPLIT_SEEN", "gather_seq", "scatter_seq", "whole_seq",
     "local_seq", "reduce_scatter", "region_in", "region_out",
-    "seq_split_here", "run_shares", "in_shares",
+    "seq_split_here", "run_shares", "in_shares", "local_part",
+    "q_seq_here", "cache_seq_split", "cache_seq", "SeqComm",
+    "cache_seq_over_model", "gather_split",
 ]
 
 # Candidates may reference axes absent from the current mesh ("pod" on the
@@ -606,3 +623,128 @@ def model_max(x: torch.Tensor) -> torch.Tensor:
     out = x.clone()
     dist.all_reduce(out, op=dist.ReduceOp.MAX, group=st[0])
     return out
+
+
+def local_part(t: torch.Tensor, dim: int, start: int, n: int):
+    """``t``'s ``n`` entries from ``start`` along ``dim``, a view; ``t``
+    itself when it already holds ``n`` there (a block a sharded step
+    handed in, rather than a whole tensor to cut)."""
+    return t if t.shape[dim] == n else t.narrow(dim, start, n)
+
+
+def q_seq_here(sq: int, split_heads: bool) -> bool:
+    """Whether a prompt chunk of ``sq`` query rows runs ``q_seq``: inside
+    the split, outside training, with the heads not split, a chunk of
+    more than one row whose count the split axis divides.  At a split of
+    size 1 the heads path runs (the identity collectives)."""
+    st = _state()
+    return (st is not None and not split_heads and st[2] > 1 and sq > 1
+            and sq % st[2] == 0)
+
+
+# --- the contiguous caches' sequence split ---------------------------
+
+_SEQ = None  # (groups in mesh order, shard, n) or "shares"
+
+
+class SeqComm:
+    """The collectives over the shards of a sequence-split cache: over
+    the process groups of its mesh axes (in mesh order), or, in share
+    mode, the shares' exchange (``shares`` = (the ``_Shares``, rank)).
+    ``gather`` concatenates the shards' tensors along ``dim`` in shard
+    order; ``sum`` and ``max`` reduce them elementwise (detached
+    copies: serving has no backward pass)."""
+
+    def __init__(self, groups=(), shares=None):
+        self.groups, self.shares = tuple(groups), shares
+
+    def _exchange(self, x, combine):
+        shares, rank = self.shares
+        return shares.exchange(rank, x.detach(), combine)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        if self.shares is not None:
+            return self._exchange(x, lambda p: torch.cat(p, dim))
+        import torch.distributed as dist
+
+        x = x.detach().contiguous()
+        for grp in reversed(self.groups):  # innermost axis first
+            parts = [torch.empty_like(x)
+                     for _ in range(dist.get_world_size(grp))]
+            dist.all_gather(parts, x, group=grp)
+            x = torch.cat(parts, dim)
+        return x
+
+    def _reduce(self, x, op, combine):
+        if self.shares is not None:
+            return self._exchange(x, combine)
+        import torch.distributed as dist
+
+        out = x.detach().clone()
+        for grp in self.groups:
+            dist.all_reduce(out, op=op, group=grp)
+        return out
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        return self._reduce(x, dist.ReduceOp.SUM, _sum)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        return self._reduce(x, dist.ReduceOp.MAX,
+                            lambda p: torch.stack(p).amax(0))
+
+
+@contextlib.contextmanager
+def cache_seq_split(mesh=None, axes: Sequence[str] = ()):
+    """The contiguous attention caches inside hold this process's block
+    of the sequence, split major-to-minor over the mesh axes ``axes``
+    of the live ``mesh``; with ``mesh`` None, in share mode, over the
+    shares' axis (each share's block is its rank's).  No axes: the
+    caches are whole."""
+    global _SEQ
+    if mesh is None:
+        new = "shares" if axes else None
+    elif not axes:
+        new = None
+    else:
+        sizes, coord = axis_sizes(mesh), dict(
+            zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+        shard = 0
+        for a in axes:
+            shard = shard * sizes[a] + coord[a]
+        new = ([mesh.get_group(a) for a in axes], shard,
+               math.prod(sizes[a] for a in axes), tuple(axes))
+    prev, _SEQ = _SEQ, new
+    try:
+        yield
+    finally:
+        _SEQ = prev
+
+
+def cache_seq():
+    """(SeqComm, shard, n) of the caches' sequence split inside
+    ``cache_seq_split``, else None."""
+    if _SEQ is None:
+        return None
+    if _SEQ == "shares":
+        shares, rank, size = _TLS.model
+        return SeqComm(shares=(shares, rank)), rank, size
+    groups, shard, n, _ = _SEQ
+    return SeqComm(groups), shard, n
+
+
+def cache_seq_over_model() -> bool:
+    """Whether the caches' sequence split (``cache_seq``) runs along the
+    split axis too (in share mode always), so that the processes of a
+    shard group hold different heads."""
+    return _SEQ == "shares" or (_SEQ is not None and "model" in _SEQ[3])
+
+
+def gather_split(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The processes' blocks of ``x`` along ``dim`` all-gathered over the
+    split axis in rank order (the identity outside the split or at size
+    1; serving only: no backward)."""
+    return _collective(x, "gather", "slice", dim)

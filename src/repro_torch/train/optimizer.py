@@ -107,9 +107,17 @@ def adamw(schedule: Callable, b1: float = 0.9, b2: float = 0.95,
     def update(grads, state, params, norm=None):
         """``norm``: the gradients' global norm when they are blocks of a
         sharded tree (``sharded_global_norm``); by default their own."""
-        step = state["step"] + 1
-        lr = schedule(step)
-        f = lambda x: float(torch.as_tensor(x, dtype=_F32))  # f32 exact
+        # f32 exact, on the host
+        f = lambda x: float(torch.as_tensor(x, dtype=_F32, device="cpu"))
+        # the step count and its scalars are host values, made on the CPU
+        # whatever the default device (the dry run traces on meta)
+        with torch.device("cpu"):
+            step = state["step"] + 1
+            lr = schedule(step)
+            stepf = step.to(_F32)
+            bc1 = f(1 - torch.tensor(b1, dtype=_F32) ** stepf)
+            bc2 = f(1 - torch.tensor(b2, dtype=_F32) ** stepf)
+            lr_f = f(lr)
         grads, gnorm = clip_by_global_norm(grads, clip_norm, norm)
         g = tree_leaves(grads)
         m, v, p = (tree_leaves(state["m"]), tree_leaves(state["v"]),
@@ -121,9 +129,6 @@ def adamw(schedule: Callable, b1: float = 0.9, b2: float = 0.95,
         torch._foreach_mul_(gg, g)
         torch._foreach_add_(v, gg)
         del gg
-        stepf = step.to(_F32)
-        bc1 = f(1 - torch.tensor(b1, dtype=_F32) ** stepf)
-        bc2 = f(1 - torch.tensor(b2, dtype=_F32) ** stepf)
         den = torch._foreach_div(v, bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, eps)
@@ -131,7 +136,7 @@ def adamw(schedule: Callable, b1: float = 0.9, b2: float = 0.95,
         torch._foreach_div_(u, den)
         del den
         torch._foreach_add_(u, torch._foreach_mul(p, f(weight_decay)))
-        torch._foreach_sub_(p, torch._foreach_mul(u, f(lr)))
+        torch._foreach_sub_(p, torch._foreach_mul(u, lr_f))
         return params, {"m": state["m"], "v": state["v"], "step": step}, {
             "grad_norm": gnorm, "lr": lr}
 

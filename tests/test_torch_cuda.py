@@ -1393,3 +1393,98 @@ def test_family_split_step_at_world_one_equals_unsharded(nccl_mesh, arch):
     assert runs[True][2] == {} and runs[False][2]
     assert runs[True][1] == runs[False][1]
     assert runs[False][0] == runs[True][0]
+
+
+def _serve_run(md, cfg, params, prompt, steps, cache_len, call):
+    """The prefill and ``steps`` greedy steps through ``call(kind, args,
+    caches)``: every logits tensor (on the host) and the launches of
+    kernels 3 and 4."""
+    from repro_torch.launch import steps as S
+
+    b = prompt.shape[0]
+    caches = S.init_caches(md, cfg, b, cache_len, device="cuda")
+    k3, k4 = btk.launches, bmvm.launches
+    out = [call("prefill", ({"tokens": prompt},), caches)]
+    for t in range(steps):
+        pos = torch.full((b,), prompt.shape[1] + t, dtype=torch.int32,
+                         device="cuda")
+        tok = out[-1].argmax(-1).to(torch.int32)
+        out.append(call("decode", (tok, pos, pos + 1), caches))
+    torch.cuda.synchronize()
+    return ([o.cpu() for o in out],
+            (btk.launches - k3, bmvm.launches - k4))
+
+
+def test_sharded_serving_steps_at_world_one_equal_the_unsharded(nccl_mesh):
+    """``make_prefill_step(mesh=)`` / ``make_serve_step(mesh=)`` on the
+    world-one NCCL mesh (1, 1), camformer-bert smoke on camformer with
+    ``use_kernel`` (kernel 4 at prefill, kernel 3 each step): every
+    logits tensor equal to the unsharded steps' bit for bit, with the
+    same launches."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import steps as S
+    from repro_torch.models import get_model_def, init_params
+
+    cfg = smoke_config("camformer-bert", attn_backend="camformer",
+                       use_kernel=True)
+    md = get_model_def(cfg)
+    params = init_params(cfg, device="cuda", seed=0)
+    prompt = torch.randint(0, cfg.vocab, (2, 16),
+                           generator=torch.Generator().manual_seed(3),
+                           dtype=torch.int32).cuda()
+    plain = {"prefill": S.make_prefill_step(md, cfg),
+             "decode": S.make_serve_step(md, cfg)}
+    want, n_want = _serve_run(md, cfg, params, prompt, 4, 32,
+                              lambda kind, a, c: plain[kind](
+                                  params, *a, c)[0])
+    sharded = {"prefill": S.make_prefill_step(md, cfg, mesh=nccl_mesh),
+               "decode": S.make_serve_step(md, cfg, mesh=nccl_mesh)}
+    blocks = S.serve_params(params, md, cfg, nccl_mesh)
+    caches = S.init_caches(md, cfg, 2, 32, nccl_mesh)
+    got, n_got = _serve_run(md, cfg, params, prompt, 4, 32,
+                            lambda kind, a, _: sharded[kind](
+                                blocks, *a, caches)[0].full_tensor())
+    assert n_got == n_want == (4 * cfg.n_layers, cfg.n_layers)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("arch, over, m", [
+    ("recurrentgemma-2b", dict(n_heads=6), 2),  # qheads, ring split
+    ("recurrentgemma-2b", dict(n_heads=6), 4),  # q_seq, ring split
+    # 6 heads at 4: attention whole, the cache's sequence split over
+    # model; each shard's CAM search takes kernel 3 at shifted positions
+    ("camformer-bert", dict(n_heads=6, n_kv_heads=6), 4)])
+def test_serving_shares_equal_the_unsplit_steps_on_the_card(cuda, arch,
+                                                            over, m):
+    """Every rank's share of the sharded serving steps in turn
+    (``serve_shares``) on the card, camformer with ``use_kernel`` at
+    smoke width: each logits tensor within 1e-5 of max |logits| of the
+    unsplit steps', kernel 4 once an attention layer a rank at prefill,
+    and (off the ring) kernel 3 once a layer a step a rank."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import steps as S
+    from repro_torch.models import get_model_def, init_params
+
+    cfg = smoke_config(arch, attn_backend="camformer", use_kernel=True,
+                       **over)
+    md = get_model_def(cfg)
+    params = init_params(cfg, device="cuda", seed=0)
+    prompt = torch.randint(0, cfg.vocab, (2, 16),
+                           generator=torch.Generator().manual_seed(4),
+                           dtype=torch.int32).cuda()
+    plain = {"prefill": S.make_prefill_step(md, cfg),
+             "decode": S.make_serve_step(md, cfg)}
+    want, n_want = _serve_run(md, cfg, params, prompt, 4, 32,
+                              lambda kind, a, c: plain[kind](
+                                  params, *a, c)[0])
+
+    def shares(kind, a, caches):
+        outs = S.serve_shares(md, cfg, kind, params, a, caches, m)
+        return torch.cat(outs, -1) if outs[0].shape[-1] < \
+            cfg.padded_vocab else outs[0]
+
+    got, n_got = _serve_run(md, cfg, params, prompt, 4, 32, shares)
+    assert n_got == (n_want[0] * m, n_want[1] * m)
+    assert n_got[1] > 0 and (arch == "recurrentgemma-2b" or n_got[0] > 0)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-5 * w.abs().max()

@@ -486,3 +486,40 @@ def test_engine_thread_runs_without_autograd(via_runner):
     pools = _leaves(eng.caches) + _leaves(eng.draft_caches)
     for t in pools + sampled + [eng._tok_buf]:
         assert t.grad_fn is None and not t.requires_grad
+
+
+def test_stopped_gateway_frees_its_engine_without_the_collector():
+    """With the cycle collector off, 4 clients through
+    ``serve_background``, then ``stop()`` and ``del``: the engine is
+    freed by reference counting alone (no cycle through a finished
+    request's ``on_token`` closure or the asyncio server's protocol
+    factory keeps it)."""
+    import gc
+    import weakref
+
+    eng = _t_engine()
+    ref = weakref.ref(eng)
+    gc.collect()
+    gc.disable()
+    try:
+        handle = tgw.serve_background(eng)
+        results = [None] * 4
+
+        def client(i):
+            results[i] = _sse_post(handle.port, {"prompt": [3, 5, 8, i + 1],
+                                                 **SAMPLING})
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert all(r is not None and r[0] == 200 and r[1][-1]["finished"]
+                   for r in results)
+        assert handle.stop()
+        del handle, eng, threads, client
+        assert ref() is None, [type(r).__name__
+                               for r in gc.get_referrers(ref())]
+    finally:
+        gc.enable()

@@ -20,7 +20,8 @@ from repro_torch.configs import smoke_config
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
     (ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"] + [
-    ROOT / "tests" / f"torch_{name}_worker.py" for name in ("dist", "tp")]
+    ROOT / "tests" / f"torch_{name}_worker.py"
+    for name in ("dist", "tp", "serve")]
 
 
 def _imported_modules(path):

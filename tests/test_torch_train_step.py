@@ -173,3 +173,54 @@ def test_remat_on_and_off_agree(name, monkeypatch):
     for a, b in zip(jax.tree.leaves(stack_blocks(g1)),
                     jax.tree.leaves(stack_blocks(g2))):
         np.testing.assert_array_equal(a, b)
+
+
+def test_first_remat_step_frees_its_activations_without_the_collector():
+    """In a fresh process with the cycle collector off, the first train
+    step of camformer-bert smoke under ``remat="full"`` frees a block's
+    activations once it returns: ``torch._dynamo`` is imported with
+    models/transformer.py, not lazily by the first checkpoint call,
+    whose frames would hold the step's in a reference cycle."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+    from pathlib import Path
+
+    script = textwrap.dedent("""
+        import gc, weakref
+        import torch
+        from repro_torch.configs import smoke_config
+        from repro_torch.launch.steps import init_state, make_train_step
+        from repro_torch.models import get_model_def
+        from repro_torch.models import transformer as T
+
+        cfg = smoke_config("camformer-bert", remat="full")
+        md = get_model_def(cfg)
+        step, opt = make_train_step(md, cfg, warmup=1)
+        state = init_state(cfg, opt, device="cpu")
+        g = torch.Generator().manual_seed(0)
+        tok = torch.randint(0, cfg.vocab, (2, 16), generator=g)
+        batch = {"tokens": tok, "labels": tok}
+        refs = []
+        block = T._apply_block
+
+        def traced(*a, **k):
+            out = block(*a, **k)
+            refs.append(weakref.ref(out[0]))
+            return out
+
+        T._apply_block = traced
+        gc.collect()
+        gc.disable()
+        step(state, batch)
+        print(len(refs), sum(r() is not None for r in refs))
+    """)
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", script], check=True,
+                         capture_output=True, text=True,
+                         env=dict(os.environ,
+                                  PYTHONPATH=str(root / "src")),
+                         timeout=120)
+    n, alive = map(int, out.stdout.split())
+    assert n > 0 and alive == 0, out.stdout

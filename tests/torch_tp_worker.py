@@ -334,11 +334,11 @@ def launcher_part(params):
     return res
 
 
-def run_ranks(out_dir, part, during, timeout_s=300):
-    """Start ``WORLD`` = 4 processes of this file on ``part`` (a file
-    rendezvous under ``out_dir``), call ``during()`` while they run, and
-    return (its value, every rank's results); processes still alive
-    after ``timeout_s`` are killed."""
+def run_ranks(out_dir, part, during, timeout_s=300, worker=None):
+    """Start ``WORLD`` = 4 processes of this file (or of the helper script
+    ``worker``) on ``part`` (a file rendezvous under ``out_dir``), call
+    ``during()`` while they run, and return (its value, every rank's
+    results); processes still alive after ``timeout_s`` are killed."""
     import signal
     import subprocess
     from pathlib import Path
@@ -348,7 +348,8 @@ def run_ranks(out_dir, part, during, timeout_s=300):
         [str(root / "src")] + [e for e in [os.environ.get("PYTHONPATH")]
                                if e]), OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
-        [sys.executable, __file__, str(r), "4", str(out_dir), part],
+        [sys.executable, worker or __file__, str(r), "4", str(out_dir),
+         part],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True, start_new_session=True) for r in range(4)]
     try:
