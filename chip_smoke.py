@@ -28,12 +28,16 @@ Phases, in order (each raises on failure; nothing is caught):
      contiguous ``lm_prefill`` + 8 ``lm_decode`` steps; then, at the f32
      smoke width, keyed draws on the card against the CPU's, and
      speculative streams (sync and overlap) against plain decode at
-     temperature 0.9;
+     temperature 0.9; and a full-width draw at bf16 (``init_params(...,
+     dtype=)``) against the float32 draw cast afterwards, bit for bit;
   5. paged slice: ``camformer-bert`` at full width in bf16 with seeded
      random weights, served by ``ServeEngine`` (8 slots, 1024 tokens,
-     overlap mode) for 8 greedy requests on ``camformer``, ``dense``,
-     ``binary`` and ``hybrid``, checking finish reasons, tick errors, one
-     readback per tick and that each kernel of the path was launched;
+     overlap mode; built as the serve launcher builds it) for 8 greedy
+     requests on ``camformer``, ``dense``, ``binary`` and ``hybrid``,
+     checking finish reasons, tick errors, one readback per tick, the
+     peak memory below the card's, that each kernel of the path was
+     launched, and on ``camformer`` and ``dense`` exact launch counts
+     against the engine's ticks (phase 16 states them);
      then speculation (``spec_k = SPEC_K``, ``binary`` drafter) on
      ``dense`` and ``camformer`` at temperature 0.9, with exact launch
      counts, beside plain decode of the same requests (the share of equal
@@ -184,28 +188,47 @@ Phases, in order (each raises on failure; nothing is caught):
      unsplit run's, the picks identical, exact kernel-4 and kernel-3
      launches, every kernel-4 launch bit-exact against its plain
      version, the Q/K sign flips counted and held as in phase 14, no
-     plain version on the card.
+     plain version on the card;
+ 16. the assigned decoder LMs at full width and depth, one engine at a
+     time: ``codeqwen1.5-7b``, ``mistral-nemo-12b``,
+     ``llava-next-mistral-7b`` (text-only, 32 layers),
+     ``moonshot-v1-16b-a3b`` and ``yi-34b``, each on ``camformer`` and
+     ``dense``, with seeded random weights drawn at bf16 leaf by leaf,
+     in the engine that ``python -m repro_torch.launch.serve --arch
+     <arch> --backend <backend> --max-batch 8 --max-len 1024`` builds
+     (its flags through ``add_engine_args``, the engine through
+     ``build_engine``): phase 5's checks, exact launch counts (camformer:
+     kernel 1 once a layer a decode tick, no flash launch; dense: kernel
+     2 once a layer a decode tick, kernel 2b once a layer a prefill
+     tick), the peak allocated memory of the draw and of the run
+     below the card's total, and each engine freed without the cycle
+     collector (what stays allocated after ``del`` is printed, under
+     0.25 GB; the same holds for every engine ``serve_run`` builds).
 
-Phase 3 also holds kernels 1, 2 (dense and binary) and 2b at granite's
-GQA width (8 kv heads, G = 3), and kernel 4 at the train step's shape
-(128, 1024, 1024), at phase 10's five shapes (recurrentgemma's prefill,
-W = 8; whisper's 1500-key encoder, decoder prefill and cross-attention)
-and at llava's prefill (W = 4), bit-exact; it times kernel 4's designs
-(tensor cores with the s8 and the b1 product, popc) apart at one shape of
-each W on a path and at 1500 and 1504 keys, and logs them on a
-``bacam_mvm designs`` line; phase 4 also runs granite smoke at G = 3
-card against CPU, and one full-width granite ``apply_moe`` layer card
-against CPU (routing identical, outputs within 1e-5).
+Phase 3 also holds kernels 1, 2 and 2b at each geometry phase 16 serves
+(head_dim 128, W = 4: G = 1 on 32 kv heads for codeqwen1.5-7b and on 16
+for moonshot-v1-16b-a3b, G = 4 on 8 for mistral-nemo-12b and llava, G = 7
+on 8 for yi-34b), each a ``kernels`` row whose launches are phase 16's
+runs at that geometry.  It holds kernels 1, 2 (dense and binary) and
+2b at granite's GQA width (8 kv heads, G = 3), and kernel 4 at the train
+step's shape (128, 1024, 1024), at phase 10's five shapes
+(recurrentgemma's prefill, W = 8; whisper's 1500-key encoder, decoder
+prefill and cross-attention) and at llava's prefill (W = 4), bit-exact;
+it times kernel 4's designs (tensor cores with the s8 and the b1
+product, popc) apart at one shape of each W on a path and at 1500 and
+1504 keys, and logs them on a ``bacam_mvm designs`` line; phase 4 also
+runs granite smoke at G = 3 card against CPU, and one full-width
+granite ``apply_moe`` layer card against CPU (routing identical,
+outputs within 1e-5).
 
 The line before the last is the ``kernels`` JSON object (one row per
 kernel and shape: the paged flash and contiguous stage-1 kernels have a
 second ``(sq>1)`` row for their prefill chunks, the paged flash kernel
-also a ``(binary)`` and a verify row, the BA-CAM matrix kernel a
-``(train)`` row at the train step's shape and a row at each of phase
-10's five shapes, at llava's and at a phase-14 share of whisper's
-encoder; ``path`` names the runs that
-launch it); the last line
-is ``{"ok": true, "device":
+also a ``(binary)`` and a verify row, kernels 1, 2 and 2b a row each at
+yi-34b's shapes, the BA-CAM matrix kernel a ``(train)`` row at the
+train step's shape and a row at each of phase 10's five shapes, at
+llava's and at a phase-14 share of whisper's encoder; ``path`` names
+the runs that launch it); the last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA card, or without the rest of the repository
 next to this file, it exits non-zero and prints no result.
 """
@@ -723,6 +746,151 @@ def gqa3_kernel_phase():
     return errs
 
 
+def assigned_geometries():
+    """{(kv heads, G query rows a kv head): the archs of phase 16 served at
+    it}, read off their configs; every one has head_dim 128 (W = 4
+    packed key words) and is served at phase 5's pool geometry."""
+    from repro_torch.configs import get_config
+
+    geoms = {}
+    for arch in ASSIGNED_ARCHS:
+        cfg = get_config(arch)
+        assert cfg.head_dim == ASSIGNED_D, (arch, cfg.head_dim)
+        g = cfg.n_heads // cfg.n_kv_heads
+        geoms.setdefault((cfg.n_kv_heads, g), []).append(arch)
+    return geoms
+
+
+def geometry_row(kernel, hkv, g):
+    """The ``kernels`` row of ``kernel`` at one of phase 16's geometries."""
+    return f"{kernel} [G={g} H_kv={hkv} D={ASSIGNED_D}]"
+
+
+def assigned_kernel_phase(flush):
+    """Kernels 1, 2 and 2b at each geometry phase 16 serves
+    (``assigned_geometries``: G = 1 on 32 and on 16 kv heads, G = 4 and
+    G = 7 on 8, d = 128, W = 4) on phase 5's pools (8 slots, 64-key
+    pages x 16): the decode step at the mid-decode kv_len (and, checked
+    only, ragged + inert kv_len), and the 384-token prefill chunk (R = G x
+    384 rows, row r at q_pos + r % 384).  Kernel 1 bit-exact, kernels 2
+    and 2b within 1e-5; each then timed beside its plain version (and
+    SDPA on gathered K/V for 2 and 2b), with its bound, as a row of its
+    own whose launches are phase 16's at that geometry."""
+    rows = []
+    for (hkv, g), archs in assigned_geometries().items():
+        rows += geometry_kernel_rows(flush, hkv, g, ", ".join(archs))
+    torch.cuda.synchronize()
+    return rows
+
+
+def geometry_kernel_rows(flush, hkv, g, archs):
+    from repro_torch.core.bacam import pack_bits
+    from repro_torch.kernels import bacam_decode as bdec
+    from repro_torch.kernels import paged_flash_decode as pfd
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 16 + 64 * hkv + g)
+    b, d, page, np_ = 8, ASSIGNED_D, 64, 16
+    w = d // 32
+    shape = f"G={g} on {hkv} kv heads, W = {w}"
+    lens = torch.tensor(SLICE_LENS, dtype=torch.int32)
+    ragged = torch.tensor([1024, 700, 513, 64, 1, 0, 300, 0],
+                          dtype=torch.int32)
+    decode_len = lens + MID_DECODE
+    rows = []
+    for label, kv_len in (("ragged", ragged), ("mid-decode", decode_len)):
+        q_pos = torch.clamp(kv_len - 1, min=0)
+        kp, table = ragged_pool(gen, b, hkv, page, np_, kv_len,
+                                torch.float32, d)
+        q = pack_bits(torch.randn((b, hkv, g, d), generator=gen))
+        a = [t.to(dev).contiguous()
+             for t in (q, pack_bits(kp), table, kv_len, q_pos)]
+        got = bdec.bacam_paged_topk_stage1(*a, d=d)
+        want = bdec.bacam_paged_topk_ref(a[0], a[1], a[2], a[3], d,
+                                         q_pos=a[4])
+        n_valid, n_dead = check_candidates(
+            f"bacam_paged_topk_stage1 {shape} {label}", got, want, 16, 2)
+        log(f"bacam_paged_topk_stage1 {shape} {label} kv_len "
+            f"{kv_len.tolist()}: bit-exact ({n_valid} valid candidates, "
+            f"{n_dead} fully masked groups at base + s)")
+    keys = causal_keys(kv_len, q_pos, 1)
+    ncand = 2 * (page // 16) * np_
+    # each input read once (q, the live keys' words, the table, kv_len and
+    # q_pos), both outputs written once; xor, popc and add a word a row
+    bytes_ = (q.numel() * 4 + keys * hkv * w * 4 + table.numel() * 4
+              + 2 * b * 4 + 2 * b * hkv * g * ncand * 4)
+    ops = 3 * keys * hkv * w * g
+    ms = cuda_ms(lambda: bdec.bacam_paged_topk_stage1(*a, d=d), flush=flush)
+    rows.append(dict(
+        name=geometry_row("bacam_paged_topk_stage1", hkv, g), route="cuda",
+        path=f"phase 16: {archs} camformer decode",
+        source="src/repro_torch/csrc/bacam_decode.cu",
+        replaces="src/repro/kernels/bacam_decode.py:137",
+        max_abs_err=0.0, ms=ms,
+        plain_ms=cuda_ms(lambda: bdec.bacam_paged_topk_ref(
+            a[0], a[1], a[2], a[3], d, q_pos=a[4]), flush=flush),
+        **bound(bytes_, ops / INT32_OP_PER_S), library_ms=None))
+    log(f"{rows[-1]['name']}: kernel {ms:.6g} ms, plain "
+        f"{rows[-1]['plain_ms']:.6g} ms, bound {rows[-1]['bound_ms']:.6g} ms "
+        f"by {rows[-1]['bound_by']}")
+
+    sq_chunk = max(SLICE_LENS)
+    flash_cases = [(None, 1, ragged, torch.clamp(ragged - 1, min=0)),
+                   ("paged_flash_decode", 1, decode_len, decode_len - 1),
+                   ("paged_flash_decode (sq>1)", sq_chunk, lens,
+                    torch.zeros_like(lens))]
+    for kernel, sq, kv_len, q_pos in flash_cases:
+        kpool, table = ragged_pool(gen, b, hkv, page, np_, kv_len,
+                                   torch.bfloat16, d)
+        vpool, _ = ragged_pool(gen, b, hkv, page, np_, kv_len,
+                               torch.bfloat16, d)
+        qr = torch.randn((b, hkv, g * sq, d), generator=gen) * d**-0.5
+        a = [t.to(dev).contiguous()
+             for t in (qr, kpool, vpool, table, kv_len, q_pos)]
+        got = pfd.paged_flash_decode(*a, sq=sq)
+        want = pfd.paged_flash_decode_ref(*a, sq=sq)
+        err, ok = close(got, want, 1e-5)
+        design, _ = pfd.plan(b, hkv, g * sq, d, d, page, np_, sq, True)
+        label = (f"paged_flash_decode G={g} on {hkv} kv heads D={d} "
+                 f"sq={sq} ({g * sq} rows a kv head, design "
+                 f"{pfd.DESIGNS[design]}) kv_len {kv_len.tolist()}")
+        assert ok, f"{label}: max abs err {err}"
+        assert torch.all(got[(kv_len == 0).to(dev)] == 0), f"{label}: inert"
+        log(f"{label}: max abs err {err:.3g} (tol 1e-5 rel+abs)")
+        if kernel is None:
+            continue
+        keys = sum(int(n) for n in kv_len)
+        bytes_ = (qr.numel() * 4 + 2 * keys * hkv * d * 2
+                  + table.numel() * 4 + 2 * b * 4 + got.numel() * 4)
+        # QK^T and PV, 2 FLOPs a multiply-add, over causal (row, key)
+        # pairs of each of the G rows
+        flops = 2 * 2 * causal_keys(kv_len, q_pos, sq) * hkv * d * g
+        if pfd.DESIGNS[design] == "chunk tiles":
+            # QK^T in f32 FMA, PV in three bf16 parts on the tensor cores
+            op_s = max(flops / 2 / F32_FLOP_PER_S,
+                       3 * flops / 2 / BF16_TC_FLOP_PER_S)
+        else:
+            op_s = flops / F32_FLOP_PER_S
+        rows.append(dict(
+            name=geometry_row(kernel, hkv, g), route="cuda",
+            path=(f"phase 16: {archs} dense "
+                  f"{'prefill' if sq > 1 else 'decode'}"),
+            source="src/repro_torch/csrc/paged_flash_decode.cu",
+            replaces="src/repro/kernels/paged_flash_decode.py:228",
+            max_abs_err=err,
+            ms=cuda_ms(lambda: pfd.paged_flash_decode(*a, sq=sq),
+                       flush=flush),
+            plain_ms=cuda_ms(lambda: pfd.paged_flash_decode_ref(*a, sq=sq),
+                             flush=flush),
+            **bound(bytes_, op_s),
+            library_ms=cuda_ms(library_attention(a, sq), flush=flush)))
+        log(f"{rows[-1]['name']}: design {pfd.DESIGNS[design]}, kernel "
+            f"{rows[-1]['ms']:.6g} ms, plain {rows[-1]['plain_ms']:.6g} ms, "
+            f"SDPA {rows[-1]['library_ms']:.6g} ms, bound "
+            f"{rows[-1]['bound_ms']:.6g} ms by {rows[-1]['bound_by']}")
+    return rows
+
+
 def bound(bytes_, op_s):
     byte_s = bytes_ / HBM_BYTES_PER_S
     return dict(bound_ms=max(byte_s, op_s) * 1e3,
@@ -1162,16 +1330,19 @@ def contiguous_parity_phase():
 def profiled(run):
     """Run ``run()`` under torch.profiler: wall time, device-busy seconds,
     the device's idle share of the wall time and the kernels that take the
-    device time.  Kept apart from the timed runs, whose numbers the
-    profiler would distort."""
+    device time; ``trace_s`` is the host time the profiler then takes to
+    hand back its events.  Kept apart from the timed runs, whose numbers
+    the profiler would distort.  It traces the device's activity alone
+    (CUDA runtime calls and kernels, no operator events): the device
+    numbers need no more, and a full-depth model's window of operator
+    events took the profiler a minute to hand back."""
     from collections import Counter
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1180,9 +1351,10 @@ def profiled(run):
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us()
+    trace_s = time.perf_counter() - t0 - wall
     busy = sum(by_name.values()) / 1e6
     return dict(
-        wall_s=wall,
+        wall_s=wall, trace_s=trace_s,
         device_busy_s=busy if busy > 0 else "not measured",
         device_idle_share=1 - busy / wall if busy > 0 else "not measured",
         top_kernels_ms=[(name[:70], us / 1e3)
@@ -1214,28 +1386,58 @@ def profile_run(eng, vocab, sampling):
     return dict(ticks=eng.ticks - ticks0, **prof)
 
 
+def build_served(arch, backend, *, spec_k=0):
+    """The engine ``python -m repro_torch.launch.serve --arch <arch>
+    --backend <backend> --max-batch 8 --max-len 1024 --page-size 64
+    --mode overlap [--spec-k N]`` builds: its flags parsed
+    by ``add_engine_args`` and the engine built by ``build_engine``, which
+    draws seeded random weights (``--seed`` 0) at the config's compute
+    dtype, leaf by leaf, on the card."""
+    import argparse
+
+    from repro_torch.launch.cli import add_engine_args, build_engine
+
+    ap = argparse.ArgumentParser()
+    add_engine_args(ap, max_batch=4, max_len=128)  # launch/serve.py's
+    argv = ["--arch", arch, "--backend", backend, "--max-batch", "8",
+            "--max-len", "1024", "--page-size", "64", "--mode", "overlap",
+            "--seed", str(SEED)]
+    if spec_k:
+        argv += ["--spec-k", str(spec_k)]
+    return build_engine(ap.parse_args(argv))
+
+
 def serve_run(backend, *, arch="camformer-bert", spec_k=0, sampling=None,
               profile=True):
-    """``arch`` at full width in bf16 (seeded random weights), served by
-    ``ServeEngine`` (8 slots, 1024 tokens, 64-token pages, overlap mode)
-    for the slice's 8 requests of 32 new tokens: every request finishes
-    on ``length`` with 32 in-vocabulary tokens, no tick fails, one
-    readback a tick, no plain version runs on the card.  Returns
-    (requests, launches, the slice line's numbers, layers)."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import count_params, init_params
-    from repro_torch.serving import ServeEngine
+    """``arch`` at full width with seeded random weights in its compute
+    dtype (bf16), served by the engine of ``build_served`` (8 slots,
+    1024 tokens, 64-token pages, overlap mode) for the slice's 8
+    requests of 32 new tokens: every request finishes on ``length`` with
+    32 in-vocabulary tokens, no tick fails, one readback a tick, no
+    plain version runs on the card, and the peak allocated memory, of
+    the weights' draw and of the run, stays below the card's total
+    (``mem_get_info``).  Without speculation the launch counts on
+    ``camformer`` and ``dense`` are exact: on ``camformer`` kernel 1 once
+    a layer a decode tick and no flash launch (its prefill chunks gather
+    in plain PyTorch, as the reference's do); on ``dense`` kernel 2 once
+    a layer a decode tick, kernel 2b once a layer a prefill tick and no
+    kernel-1 launch.  Returns (requests, launches, the slice line's
+    numbers, layers)."""
+    from repro_torch.models import count_params
 
     sampling = sampling or {}
     label = f"{backend}{f' spec_k={spec_k}' if spec_k else ''}"
-    cfg = get_config(arch, attn_backend=backend)
-    params = init_params(cfg, device="cuda", seed=SEED)
-    n_params = count_params(params)
-    eng = ServeEngine(cfg, params, max_batch=8, max_len=1024, page_size=64,
-                      mode="overlap", spec_k=spec_k, device="cuda")
-    del params
-    reqs = slice_requests(cfg.vocab, SEED, **sampling)
+    total = torch.cuda.mem_get_info()[1]
+    live_at_entry = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = build_served(arch, backend, spec_k=spec_k)
     torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    cfg = eng.cfg
+    n_params = count_params(eng.params)
+    reqs = slice_requests(cfg.vocab, SEED, **sampling)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     with plain_calls_on_card() as plain:
@@ -1248,6 +1450,7 @@ def serve_run(backend, *, arch="camformer-bert", spec_k=0, sampling=None,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
     assert plain == {}, f"{label}: plain versions ran on the card {plain}"
     assert eng.tick_errors == 0, f"{label}: {eng.last_error}"
     for r in reqs:
@@ -1257,6 +1460,24 @@ def serve_run(backend, *, arch="camformer-bert", spec_k=0, sampling=None,
         assert all(0 <= t < cfg.vocab for t in r.tokens), (label, r.rid)
     assert eng.readbacks == eng.ticks + eng.prefill_ticks, (
         label, eng.readbacks, eng.ticks, eng.prefill_ticks)
+    assert max(build_peak, peak) < total, (label, build_peak, peak, total)
+    if not spec_k and backend in ("camformer", "dense"):
+        n = cfg.n_layers
+        flash = sum(v for k, v in launches.items()
+                    if k.startswith("paged_flash_decode"))
+        if backend == "camformer":
+            assert launches["bacam_paged_topk_stage1"] == n * eng.ticks, (
+                label, launches, eng.ticks)
+            assert flash == 0, (label, launches)
+        else:
+            assert launches["paged_flash_decode"] == n * eng.ticks, (
+                label, launches, eng.ticks)
+            assert launches["paged_flash_decode (sq>1)"] == (
+                n * eng.prefill_ticks), (label, launches, eng.prefill_ticks)
+            assert flash == launches["paged_flash_decode"] + launches[
+                "paged_flash_decode (sq>1)"], (label, launches)
+            assert launches["bacam_paged_topk_stage1"] == 0, (label,
+                                                              launches)
     ttft = sorted(first.values())
     result = dict(
         wall_s=wall, ticks=eng.ticks, ticks_per_s=eng.ticks / wall,
@@ -1264,7 +1485,9 @@ def serve_run(backend, *, arch="camformer-bert", spec_k=0, sampling=None,
         ttft_p50_s=statistics.median(ttft), ttft_max_s=ttft[-1],
         readbacks=eng.readbacks, prefill_ticks=eng.prefill_ticks,
         host_blocked_s=eng.blocked_s,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        peak_mem_gb=peak / 1e9, build_peak_mem_gb=build_peak / 1e9,
+        mem_total_gb=total / 1e9, live_at_entry_gb=live_at_entry / 1e9,
+        build_s=build_s, layers=cfg.n_layers,
         params=n_params, sampling=sampling,
         launches={k: v for k, v in launches.items() if v})
     if spec_k:
@@ -1277,6 +1500,10 @@ def serve_run(backend, *, arch="camformer-bert", spec_k=0, sampling=None,
         log(f"profile {arch}/{label}: "
             f"{json.dumps(profile_run(eng, cfg.vocab, sampling))}")
     del eng
+    left = torch.cuda.memory_allocated() - live_at_entry
+    log(f"freed {arch}/{label} without gc: {left / 1e9:.6g} GB above the "
+        f"run's entry still allocated")
+    assert left < 0.25e9, (label, "engine not freed without gc", left)
     torch.cuda.empty_cache()
     return reqs, launches, result, cfg.n_layers
 
@@ -1366,6 +1593,31 @@ def spec_phase():
 def first_divergence(a, b):
     """The index of the first differing token (None when equal)."""
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def draw_dtype_check():
+    """``init_params(cfg, dtype=bf16)`` on the card equals the float32
+    draw cast afterwards bit for bit (camformer-bert at full width): the
+    weights the serving phases draw at bf16 are the ones they served
+    when the engine cast a float32 draw."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import cast_params, init_params
+    from repro_torch.models.module import tree_leaves
+
+    cfg = get_config("camformer-bert")
+    got = tree_leaves(init_params(cfg, device="cuda", seed=SEED,
+                                  dtype=torch.bfloat16))
+    want = tree_leaves(cast_params(init_params(cfg, device="cuda",
+                                               seed=SEED), torch.bfloat16))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and torch.equal(
+            g.view(torch.int16), w.view(torch.int16))
+    log(f"init_params dtype=bf16 on the card: bit-identical to the cast "
+        f"float32 draw (camformer-bert full width, {len(got)} leaves, "
+        f"{sum(t.numel() for t in got)} parameters)")
+    del got, want
+    torch.cuda.empty_cache()
 
 
 def spec_exactness_phase():
@@ -3917,6 +4169,50 @@ def serve_share_phase(smi):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the assigned decoder LMs at full width and depth
+
+# smallest risk first; llava-next-mistral-7b serves text-only (its 32
+# layers), as the reference serves the VLM
+ASSIGNED_ARCHS = ("codeqwen1.5-7b", "mistral-nemo-12b",
+                  "llava-next-mistral-7b", "moonshot-v1-16b-a3b", "yi-34b")
+ASSIGNED_D = 128  # the head_dim of every one of them
+# the kernels whose launches phase 16 counts in the rows of its geometries
+GEOMETRY_KERNELS = ("bacam_paged_topk_stage1", "paged_flash_decode",
+                    "paged_flash_decode (sq>1)")
+
+
+def assigned_phase():
+    """Each of ``ASSIGNED_ARCHS`` at full width and depth, seeded random
+    bf16 weights drawn at that dtype, served on ``camformer`` (kernel 1)
+    and ``dense`` (kernels 2 and 2b) as ``python -m
+    repro_torch.launch.serve --arch <arch> --backend <backend>
+    --max-batch 8 --max-len 1024`` builds it, one engine at a time, with
+    ``serve_run``'s checks and exact launch counts.  What earlier phases
+    left to the cycle collector is collected first (and printed); each
+    engine is then freed without it.  Returns each run's launches, counted
+    in the rows of the arch's geometry (``geometry_row``)."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    live = torch.cuda.memory_allocated()
+    gc.collect()
+    log(f"phase 16 entry: {live / 1e9:.6g} GB live, "
+        f"{(live - torch.cuda.memory_allocated()) / 1e9:.6g} GB of it freed "
+        f"by gc.collect()")
+    runs = []
+    for arch in ASSIGNED_ARCHS:
+        cfg = get_config(arch)
+        hkv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+        for backend in ("camformer", "dense"):
+            _, launches, _, _ = serve_run(backend, arch=arch)
+            runs.append({geometry_row(k, hkv, g) if k in GEOMETRY_KERNELS
+                         else k: v for k, v in launches.items()})
+            log(f"phase 16 elapsed {time.perf_counter() - t0:.1f}s: "
+                f"{arch}/{backend}")
+    return runs
+
+
 def kernel_instance(mangled):
     """``name<N, ...>`` of a mangled ``..._kernel<N, ...>`` (Itanium: a name
     is its length, then its characters; int and bool template arguments
@@ -4012,14 +4308,16 @@ def main():
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     log(f"launch floor: {launch_floor(flush):.6g} ms (a one-element zero_()"
         f" under the kernels' timing: L2 flushed, CUDA events)")
-    rows = (kernel_phase(flush) + contiguous_kernel_phase(flush)
-            + train_kernel_phase(flush) + families_kernel_phase(flush))
+    rows = (kernel_phase(flush) + assigned_kernel_phase(flush)
+            + contiguous_kernel_phase(flush) + train_kernel_phase(flush)
+            + families_kernel_phase(flush))
     del flush
     log(f"gqa3 parity: {json.dumps(gqa3_kernel_phase())}")
     parity_phase()
     log(f"moe parity: {json.dumps(moe_parity_phase())}")
     contiguous_parity_phase()
     spec_exactness_phase()
+    draw_dtype_check()
     log(f"elapsed {time.perf_counter() - t0:.1f}s: kernels and parity")
     runs = list(slice_phase().values()) + list(spec_phase().values())
     log(f"elapsed {time.perf_counter() - t0:.1f}s: paged slice")
@@ -4052,6 +4350,8 @@ def main():
     log(f"elapsed {time.perf_counter() - t0:.1f}s: model-split shares")
     runs += serve_share_phase(smi_line)
     log(f"elapsed {time.perf_counter() - t0:.1f}s: sharded serving shares")
+    runs += assigned_phase()
+    log(f"elapsed {time.perf_counter() - t0:.1f}s: assigned LMs")
     for row in rows:  # launches over every path run
         row["launches"] = sum(run.get(row["name"], 0) for run in runs)
         if row["path"] != "none":

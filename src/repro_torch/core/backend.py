@@ -28,7 +28,12 @@ Each ``paged_decode`` has two realizations (``ModelConfig.paged_impl``):
 the latter, kernels/bacam_decode.py for camformer and hybrid) and
 ``"gather"`` gathers the pages into logical order and attends in plain
 PyTorch.  Dense and binary Sq > 1 chunks follow ``prefill_paged_impl``;
-camformer chunks always gather.
+camformer chunks always gather: there is no fused Sq>1 CAM kernel, in
+the reference either, so ``paged_io_stats`` gives camformer's two
+prefill columns the gather numbers (``hybrid`` closes that gap: its
+chunks flash-score over a dense key pool).  ``cache_bytes_per_token``
+and ``paged_io_stats`` are the reference's analytic capacity and
+decode-step I/O accounting, the same numbers under the same keys.
 
 Under ``cfg.spec_verify`` (a speculative verify chunk, with the
 ``k_means`` pool leaf sized ``spec_k + 1``) the stateful backends score
@@ -289,6 +294,12 @@ def _write_rows(pool, phys, row, x):
     pool[phys, :, row] = x.to(pool.dtype).transpose(1, 2)
 
 
+def _pool_rows(kv_len, page_size, n_table_pages):
+    """(rows of the slot's live pages, rows of its whole table extent)."""
+    return (-(-max(kv_len, 1) // page_size) * page_size,
+            n_table_pages * page_size)
+
+
 class AttentionBackend:
     """One physical realization of the attention operation."""
 
@@ -338,11 +349,44 @@ class AttentionBackend:
         """{leaf: (shape, dtype)} of one layer's paged pool."""
         raise NotImplementedError
 
+    def cache_bytes_per_token(self, cfg, dtype) -> float:
+        """KV bytes appended per token per layer (capacity accounting);
+        ``dtype`` is the pools' ``torch.dtype``."""
+        raise NotImplementedError
+
     def paged_decode(self, q, cache, k, v, positions, page_table, kv_len,
                      cfg, *, base=None):
         """Write k/v into the pools at their logical positions and attend
         through the page table.  Returns (out (B, H, Sq, Dv), cache)."""
         raise NotImplementedError
+
+    # -- analytic decode-step I/O accounting ----------------------------
+    def paged_io_stats(self, cfg, dtype, *, kv_len: int, page_size: int,
+                       n_table_pages: int) -> dict:
+        """Analytic per-layer, per-slot decode-step I/O in bytes, the
+        reference's numbers under its keys.
+
+        ``fused_read_bytes`` / ``gather_read_bytes``: pool bytes READ per
+        decode token by each ``paged_impl`` realization (fused walks only
+        the slot's LIVE pages; gather dereferences the full
+        ``n_table_pages`` table extent).  ``gather_scratch_bytes``: the
+        peak logical-order scratch the gather impl materializes per slot
+        (the fused kernels stream page tiles: zero scratch).
+        ``prefill_fused_read_bytes`` / ``prefill_gather_read_bytes``: the
+        same for one Sq > 1 chunk attend under each ``prefill_impl``; the
+        chunk reads the pools once whatever its length, so bytes per
+        prefill token divide by the chunk size.  Benchmarks multiply by
+        ``n_layers`` and the batch for the system's numbers.
+        """
+        row = 2 * cfg.n_kv_heads * cfg.head_dim * dtype.itemsize  # K + V
+        live_rows, table_rows = _pool_rows(kv_len, page_size, n_table_pages)
+        return {
+            "fused_read_bytes": live_rows * row,
+            "gather_read_bytes": table_rows * row,
+            "gather_scratch_bytes": table_rows * row,
+            "prefill_fused_read_bytes": live_rows * row,
+            "prefill_gather_read_bytes": table_rows * row,
+        }
 
 
 class DenseBackend(AttentionBackend):
@@ -358,6 +402,9 @@ class DenseBackend(AttentionBackend):
     def page_spec(self, cfg, n_pages, page_size, max_batch, dtype):
         shape = (n_pages, cfg.n_kv_heads, page_size, cfg.head_dim)
         return {"k_pages": (shape, dtype), "v_pages": (shape, dtype)}
+
+    def cache_bytes_per_token(self, cfg, dtype):
+        return 2 * cfg.n_kv_heads * cfg.head_dim * dtype.itemsize
 
     def _write(self, cache, k, v, index, cfg):
         _seq_write(cache["k"], k, index)
@@ -710,6 +757,29 @@ class CamformerBackend(AttentionBackend):
             **_k_means_spec(cfg, max_batch),
         }
 
+    def cache_bytes_per_token(self, cfg, dtype):
+        d = cfg.head_dim
+        return cfg.n_kv_heads * (d // 8 + d * dtype.itemsize)
+
+    def paged_io_stats(self, cfg, dtype, *, kv_len, page_size,
+                       n_table_pages):
+        hkv, d = cfg.n_kv_heads, cfg.head_dim
+        kp_row = hkv * (d // 8)  # bit-packed keys: 1 bit an element
+        live_rows, table_rows = _pool_rows(kv_len, page_size, n_table_pages)
+        # V is never gathered: only the k_top survivors are read, per
+        # GQA query row (worst case all-unique selections)
+        g = cfg.n_heads // hkv
+        v_sel = hkv * g * min(cfg.k_top, kv_len or 1) * d * dtype.itemsize
+        return {
+            "fused_read_bytes": live_rows * kp_row + v_sel,
+            "gather_read_bytes": table_rows * kp_row + v_sel,
+            "gather_scratch_bytes": table_rows * kp_row,
+            # no fused Sq>1 CAM kernel: chunk attends gather the packed
+            # pool under either prefill_impl
+            "prefill_fused_read_bytes": table_rows * kp_row + v_sel,
+            "prefill_gather_read_bytes": table_rows * kp_row + v_sel,
+        }
+
     def _paged_write(self, cache, k, v, positions, page_table, kv_len,
                      base=None):
         """Splice new K/V into the pools at their logical positions.
@@ -763,6 +833,22 @@ class HybridBackend(CamformerBackend):
         spec["k_pages"] = ((n_pages, cfg.n_kv_heads, page_size,
                             cfg.head_dim), dtype)
         return spec
+
+    def cache_bytes_per_token(self, cfg, dtype):
+        d = cfg.head_dim
+        # packed keys + dense keys (flash prefill) + dense values
+        return cfg.n_kv_heads * (d // 8 + 2 * d * dtype.itemsize)
+
+    def paged_io_stats(self, cfg, dtype, *, kv_len, page_size,
+                       n_table_pages):
+        kw = dict(kv_len=kv_len, page_size=page_size,
+                  n_table_pages=n_table_pages)
+        stats = super().paged_io_stats(cfg, dtype, **kw)
+        # decode columns stay CAM; prefill chunks read the DENSE pools
+        dense = AttentionBackend.paged_io_stats(self, cfg, dtype, **kw)
+        for key in ("prefill_fused_read_bytes", "prefill_gather_read_bytes"):
+            stats[key] = dense[key]
+        return stats
 
     def _paged_write(self, cache, k, v, positions, page_table, kv_len,
                      base=None):

@@ -17,10 +17,11 @@ import os
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import init_params
+from repro_torch.models.transformer import dtype_of
 from repro_torch.serving import ServeEngine, parse_faults
 
 __all__ = ["add_backend_args", "add_engine_args", "apply_backend_args",
-           "build_engine"]
+           "build_engine", "resolve_backend_arg"]
 
 
 def add_backend_args(ap: argparse.ArgumentParser):
@@ -33,7 +34,7 @@ def add_backend_args(ap: argparse.ArgumentParser):
                          "cycled over the stack (e.g. dense,camformer)")
 
 
-def _resolve_backend_arg(args) -> str | None:
+def resolve_backend_arg(args) -> str | None:
     """The requested backend name; stale --attn-mode usage is a clean
     error pointing at the migration."""
     if getattr(args, "attn_mode", None):
@@ -44,7 +45,7 @@ def _resolve_backend_arg(args) -> str | None:
 
 
 def apply_backend_args(cfg, args):
-    backend = _resolve_backend_arg(args)
+    backend = resolve_backend_arg(args)
     if backend:
         cfg = cfg.replace(attn_backend=backend)
     if args.layer_backends:
@@ -59,7 +60,8 @@ def build_engine(args) -> ServeEngine:
     ``torchrun`` (one process a device) this process joins the default
     group (NCCL on the card, gloo with ``--device cpu``) unless it has
     already; every process builds the same engine from the same seed,
-    and rank 0 serves (``ServeEngine.follow`` on the others)."""
+    and rank 0 serves (``ServeEngine.follow`` on the others).  The
+    weights are drawn at the config's compute dtype (``dtype_of``)."""
     if args.tp > 1 and "WORLD_SIZE" in os.environ:
         import torch.distributed as dist
 
@@ -72,7 +74,10 @@ def build_engine(args) -> ServeEngine:
     cfg = apply_backend_args(cfg, args)
     if args.prefill_chunk is not None:
         cfg = cfg.replace(prefill_chunk=args.prefill_chunk)
-    params = init_params(cfg, device=args.device, seed=args.seed)
+    # drawn at the serving dtype leaf by leaf: the float32 tree of the
+    # larger configs would not fit the card
+    params = init_params(cfg, device=args.device, seed=args.seed,
+                         dtype=dtype_of(cfg))
     faults = parse_faults(args.faults) if args.faults else None
     return ServeEngine(
         cfg,

@@ -345,7 +345,7 @@ def table(out_dir=RESULTS_DIR, mesh: str = "pod", tag: str = "") -> str:
 
 
 def main(argv=None):
-    from repro_torch.launch.cli import _resolve_backend_arg
+    from repro_torch.launch.cli import resolve_backend_arg
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -375,7 +375,7 @@ def main(argv=None):
         return
 
     P.set_parallelism_profile(args.profile)
-    backend = _resolve_backend_arg(args)
+    backend = resolve_backend_arg(args)
     if args.all:
         for arch in ASSIGNED_ARCHS:
             for shape in SHAPES:

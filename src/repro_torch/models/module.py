@@ -79,32 +79,44 @@ def _leaf(shape, init, gen, device, std=None):
     return torch.randn(shape, generator=gen, device=device) * std
 
 
-def _draw(tree, gen, device):
+def _draw(tree, gen, device, dtype):
     if isinstance(tree, dict):
-        return {k: _draw(v, gen, device) for k, v in tree.items()}
+        return {k: _draw(v, gen, device, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_draw(v, gen, device) for v in tree]
+        return [_draw(v, gen, device, dtype) for v in tree]
     shape, init, _, *std = tree
     _axes_of(tree)
-    return _leaf(shape, init, gen, device, *std)
+    leaf = _leaf(shape, init, gen, device, *std)
+    return leaf if dtype is None else leaf.to(dtype)
 
 
 def init_params(cfg, generator: torch.Generator | None = None,
-                device="cuda", *, seed: int = 0) -> dict:
-    """Random float32 parameters drawn from a ``torch.Generator``, leaf
-    by leaf in the order of the family's shape tree.
+                device="cuda", *, seed: int = 0, dtype=None) -> dict:
+    """Random parameters drawn from a ``torch.Generator``, leaf by leaf
+    in the order of the family's shape tree.
 
     The distributions are the reference's (``models/module.py``):
     fan-in scaled normals for matrices unless a leaf states its std
     (N(0, d_model**-0.5) for the token embedding, r**-0.5 for the RG-LRU
     gates), ones/zeros for norms, biases and the like.  The numbers
     differ from the reference's, which draws from ``jax.random``.
+
+    Every leaf is drawn in float32.  With a ``dtype`` each leaf is cast
+    to it before the next is drawn, so the result equals
+    ``cast_params(init_params(cfg, ...), dtype)`` bit for bit while the
+    float32 copy alive at any time is one leaf, not the tree: a model
+    whose float32 tree would not fit the card (yi-34b: 137.6 GB) is
+    drawn straight at its serving dtype.  The reference draws in
+    ``dtype`` directly (``models/module.py::init_params``); the port
+    casts per leaf so that its bf16 weights are the ones ``ServeEngine``
+    serves when handed the float32 draw (it casts them to the compute
+    dtype), whichever way a caller draws them.
     """
     shapes = param_shapes(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
-    return _draw(shapes, generator, dev)
+    return _draw(shapes, generator, dev, dtype)
 
 
 def cast_params(params, dtype, device=None):

@@ -32,7 +32,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.launch.inputs import input_specs
 
-__all__ = ["SyntheticLMData"]
+__all__ = ["SyntheticLMData", "make_batch_arrays"]
 
 
 def _row_tokens(seed: int, step: int, row: int, length: int, vocab: int):
@@ -125,3 +125,9 @@ class SyntheticLMData:
         if self._thread is not None:
             self._thread.join(timeout=5)
 
+
+def make_batch_arrays(cfg, shape_name, step=0, seed=0, device="cuda"):
+    """One-shot convenience (tests / examples): the batch of ``step``,
+    ``SyntheticLMData(cfg, shape_name, seed, device).batch(step)``.  The
+    reference's takes a mesh where this takes a device."""
+    return SyntheticLMData(cfg, shape_name, seed, device).batch(step)

@@ -77,7 +77,12 @@ def _assert_candidates(got_v, got_i, want_v, want_i, group, s1):
     (2, 2, 16, 2, 2, None, False), (3, 1, 16, 1, 1, 5, False),
     (16, 2, 64, 16, 2, None, False), (12, 5, 32, 8, 2, 9, False),
     # granite-moe-3b-a800m's decode rows: G = 3 on 64-key pages, d = 64
-    (3, 2, 64, 16, 2, None, False), (3, 2, 64, 16, 2, 100, False)])
+    (3, 2, 64, 16, 2, None, False), (3, 2, 64, 16, 2, 100, False),
+    # the assigned LMs' head_dim 128 (W = 4) on 64-key pages, group 16:
+    # yi-34b's G = 7, mistral-nemo-12b's and llava's G = 4 and the G = 1
+    # rows of codeqwen1.5-7b and moonshot-v1-16b-a3b (MHA)
+    (7, 4, 64, 16, 2, None, False), (4, 4, 64, 16, 2, None, False),
+    (1, 4, 64, 16, 2, None, False)])
 def test_bacam_kernel_matches_plain(cuda, r, w, page, group, s1, window,
                                     ties):
     """Ragged and inert slots, table entries past kv_len on the trash
@@ -131,7 +136,17 @@ def test_bacam_kernel_matches_plain(cuda, r, w, page, group, s1, window,
     (3, 1, 64, 64, False, None, 16, (1000, 0, 65, 1)),
     (3, 1, 64, 64, True, None, 16, (1000, 0, 65, 1)),
     (3, 4, 64, 64, False, None, 16, None),
-    (3, 384, 64, 64, False, None, 7, (64, 0, 200, 384))])
+    (3, 384, 64, 64, False, None, 7, (64, 0, 200, 384)),
+    # yi-34b's G = 7 at D = Dv = 128: decode rows (split-KV in bf16) and
+    # a 384-token prefill chunk of 7 x 384 rows (chunk tiles in bf16);
+    # the same at mistral-nemo-12b's and llava's G = 4 and at the G = 1
+    # of codeqwen1.5-7b and moonshot-v1-16b-a3b
+    (7, 1, 128, 64, False, None, 16, (1000, 0, 65, 1)),
+    (7, 384, 128, 64, False, None, 7, (64, 0, 200, 384)),
+    (4, 1, 128, 64, False, None, 16, (1000, 0, 65, 1)),
+    (4, 384, 128, 64, False, None, 7, (64, 0, 200, 384)),
+    (1, 1, 128, 64, False, None, 16, (1000, 0, 65, 1)),
+    (1, 384, 128, 64, False, None, 7, (64, 0, 200, 384))])
 def test_flash_kernel_matches_plain(cuda, dtype, g, sq, d, page, binary,
                                     window, np_, lens):
     rng = np.random.default_rng(sq * 10 + g)
@@ -180,7 +195,11 @@ def _ws(n_splits, rows, dv):  # split workspace floats at B = 2, H_kv = 3
     ((1, 256, 256, 256, 4, 1, False), 1, "SIMT", 0),  # > 227 KB
     ((2, 64, 64, 128, 5, 1, True), 1, "split-KV", _ws(5, 2, 64)),
     ((1, 64, 64, 64, 15, 1, True), 2, "split-KV", _ws(8, 1, 64)),
-    ((1, 256, 256, 64, 8, 1, False), 2, "SIMT", 0)])  # 2 pages too large
+    ((1, 256, 256, 64, 8, 1, False), 2, "SIMT", 0),  # 2 pages too large
+    # yi-34b (G = 7, D = 128) on 64-key pages x 16: the decode step and
+    # the 384-token prefill chunk (7 x 384 rows), in the parity cases above
+    ((7, 128, 128, 64, 16, 1, True), 1, "split-KV", _ws(16, 7, 128)),
+    ((7 * 384, 128, 128, 64, 16, 384, True), 1, "chunk tiles", 0)])
 def test_flash_plan_picks_design(cuda, args, split_pages, design, ws):
     """The source's choice among its three designs, from the shapes (rows,
     D, Dv, page, NP, sq, bf16) alone, and the workspace it asks for."""
