@@ -65,9 +65,9 @@ Phases, in order (each raises on failure; nothing is caught):
      times: forward and recompute) and on ``dense``, every loss finite
      and the last below the first, checkpoints every 6 steps (under
      ``build/train_ckpt``, removed after) and a second ``Trainer``
-     resuming from the last; ``granite-moe-3b-a800m`` at full width cut
-     to 4 layers for 6 steps (the MoE backward); the flow of
-     ``examples/had_distill.py`` at its own width;
+     resuming from the last (granite's MoE backward at full depth is
+     phase 17's); the flow of ``examples/had_distill.py`` at its own
+     width;
   9. the gateway: ``camformer-bert`` as in phase 5 behind
      ``serve_background`` (HTTP/SSE over local sockets, the engine on
      the runner thread) on ``camformer`` and ``dense``: (a) a greedy and
@@ -203,7 +203,29 @@ Phases, in order (each raises on failure; nothing is caught):
      tick), the peak allocated memory of the draw and of the run
      below the card's total, and each engine freed without the cycle
      collector (what stays allocated after ``del`` is printed, under
-     0.25 GB; the same holds for every engine ``serve_run`` builds).
+     0.25 GB; the same holds for every engine ``serve_run`` builds);
+ 17. four families trained at full width and depth, one at a time,
+     through ``Trainer`` as ``python -m repro_torch.launch.train --arch
+     <arch>`` drives it (``SyntheticLMData``, f32 masters, bf16
+     compute, remat, seeded weights and data, warmup 2), each batch
+     ``train_4k`` (256 x 4096) cut to what one card holds and printed
+     as ``reduced``: ``whisper-medium`` (24 + 24 layers, 8 x (1500 stub
+     frames + 448 tokens), 4 steps) on ``camformer`` with ``use_kernel``
+     (kernel 4 exactly 2 x (24 + 2 x 24) times a step: forward and
+     recompute of the encoder, the decoder's self- and cross-attention),
+     then checkpointed at step 4 (under ``build/``, removed after) and
+     resumed by a second ``Trainer`` for 2 steps, and on ``dense``;
+     ``recurrentgemma-2b`` (26 layers, 8 of them attention, 2 x 2048, 3
+     steps) on ``camformer`` with ``use_kernel`` (kernel 4 exactly 2 x 8
+     a step) and ``dense``; ``rwkv6-3b`` (32 blocks, 4 x 512, 3 steps)
+     and ``granite-moe-3b-a800m`` (32 layers, G = 3, 8 x 1024, 3 steps)
+     on ``dense``: every step's metrics finite, the last loss below the
+     first on whisper, no other kernel launched and no plain version on
+     the card, the peak allocated memory below the card's total (beside
+     the state's 16 B a parameter), what stays allocated after ``del``
+     under 0.25 GB, granite's aux loss positive and its drop share
+     printed; step s, tokens/s, losses, grad norms and a profiled
+     step's device-idle share on ``train <arch> ...`` lines.
 
 Phase 3 also holds kernels 1, 2 and 2b at each geometry phase 16 serves
 (head_dim 128, W = 4: G = 1 on 32 kv heads for codeqwen1.5-7b and on 16
@@ -214,7 +236,11 @@ runs at that geometry.  It holds kernels 1, 2 (dense and binary) and
 step's shape (128, 1024, 1024), at phase 10's five shapes
 (recurrentgemma's prefill, W = 8; whisper's 1500-key encoder, decoder
 prefill and cross-attention) and at llava's prefill (W = 4), bit-exact;
-it times kernel 4's designs (tensor cores with the s8 and the b1
+it holds kernel 4 at phase 17's train shapes (whisper's encoder
+(128, 1500, 1500), decoder self-attention (128, 448, 448) and
+cross-attention (128, 448, 1500), W = 2; recurrentgemma's attention
+(2, 20480, 2048), W = 8), bit-exact; it times kernel 4's designs
+(tensor cores with the s8 and the b1
 product, popc) apart at one shape of each W on a path and at 1500 and
 1504 keys, and logs them on a ``bacam_mvm designs`` line; phase 4 also
 runs granite smoke at G = 3 card against CPU, and one full-width
@@ -227,8 +253,9 @@ second ``(sq>1)`` row for their prefill chunks, the paged flash kernel
 also a ``(binary)`` and a verify row, kernels 1, 2 and 2b a row each at
 yi-34b's shapes, the BA-CAM matrix kernel a ``(train)`` row at the
 train step's shape and a row at each of phase 10's five shapes, at
-llava's and at a phase-14 share of whisper's encoder; ``path`` names
-the runs that launch it); the last line is ``{"ok": true, "device":
+llava's, at a phase-14 share of whisper's encoder and at each of phase
+17's four train shapes; ``path`` names the runs that launch it); the
+last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA card, or without the rest of the repository
 next to this file, it exits non-zero and prints no result.
 """
@@ -1348,9 +1375,11 @@ def profiled(run):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = Counter()
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] += e.time_range.elapsed_us()
+    # the raw device records: building the profiler's per-event objects
+    # (``prof.events()``) took 77-110 s for a step of the loops over time
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            by_name[e.name()] += e.duration_ns() / 1e3
     trace_s = time.perf_counter() - t0 - wall
     busy = sum(by_name.values()) / 1e6
     return dict(
@@ -1921,7 +1950,6 @@ def vlm_contiguous_phase():
 # kernel 4 scores (8 x 16 kv heads, 1024, 1024) a layer and pass
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 1024, 12, 6
 TRAIN_SHAPE = "train_8x1024"
-MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 6
 TRAIN_ROW = "bacam_mvm (train)"
 TRAIN_LINES = {}  # phase 8's full-width runs by backend, read by phase 12
 
@@ -2070,20 +2098,51 @@ def train_parity_phase():
     return out
 
 
-def train_run(cfg, *, ckpt_dir, total_steps, ckpt_every, profile=False):
-    """``Trainer`` over ``cfg`` at TRAIN_B x TRAIN_S on the card (cosine
-    schedule, warmup 2, f32 masters, seeded init and data), launches
-    counted and plain versions refused; returns (trainer, state, launches,
-    wall seconds, peak GB[, profile of one more step])."""
+def train_shape(b, s):
+    """Register a train batch of ``b`` rows of ``s`` tokens in ``SHAPES``
+    (as ``train_4k`` is registered) and return its name."""
+    from repro_torch.configs import SHAPES
+
+    name = f"train_{b}x{s}"
+    SHAPES[name] = dict(seq_len=s, global_batch=b, kind="train")
+    return name
+
+
+def train_run(cfg, shape, *, ckpt_dir, total_steps, ckpt_every,
+              profile=False, peak_lr=3e-4):
+    """``Trainer`` over ``cfg`` at the batch of ``shape`` (a ``SHAPES``
+    name) on the card (cosine schedule to ``peak_lr``, warmup 2, f32
+    masters, seeded init and data), launches counted and plain versions
+    refused, the step logged every step; returns {"trainer", "state",
+    "launches", "wall_s", "peak_gb", "metrics" (every step's
+    ``METRIC_KEYS`` as floats), "profile"}.  With ``profile`` the last
+    step of a fresh run runs under ``profiled`` (its logged time then
+    holds the profiler's hand-back: leave it out of the median)."""
     from repro_torch.models import get_model_def
     from repro_torch.train.data import SyntheticLMData
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    data = SyntheticLMData(cfg, TRAIN_SHAPE, seed=SEED, device="cuda")
+    data = SyntheticLMData(cfg, shape, seed=SEED, device="cuda")
     tcfg = TrainerConfig(total_steps=total_steps, ckpt_every=ckpt_every,
                          ckpt_dir=str(ckpt_dir), keep=1, log_every=1,
-                         warmup=2, seed=SEED)
+                         peak_lr=peak_lr, warmup=2, seed=SEED)
     trainer = Trainer(get_model_def(cfg), cfg, data, tcfg, device="cuda")
+    step_fn, metrics, prof = trainer.step_fn, [], {}
+
+    def recorded(state, batch):
+        if profile and len(metrics) == total_steps - 1:
+            def last():
+                prof["out"] = step_fn(state, batch)
+                float(prof["out"][1]["loss"])
+
+            prof["profile"] = profiled(last)
+            out = prof.pop("out")
+        else:
+            out = step_fn(state, batch)
+        metrics.append(out[1])
+        return out
+
+    trainer.step_fn = recorded
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with plain_calls_on_card() as plain:
@@ -2092,19 +2151,18 @@ def train_run(cfg, *, ckpt_dir, total_steps, ckpt_every, profile=False):
         state = trainer.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = read_launches()
+        launches = read_launches(families=True)
     assert plain == {}, f"train {cfg.name}: plain versions on the card {plain}"
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    prof = None
-    if profile:  # one more step, apart from the counted ones
-        batch = data.batch(total_steps)
+    assert not profile or "profile" in prof, "a resumed run is not profiled"
+    return dict(trainer=trainer, state=state, launches=launches, wall_s=wall,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                metrics=[{k: float(v) for k, v in m.items()}
+                         for m in metrics], profile=prof.get("profile"))
 
-        def one_step():
-            _, metrics = trainer.step_fn(state, batch)
-            float(metrics["loss"])
 
-        prof = profiled(one_step)
-    return trainer, state, launches, wall, peak, prof
+def median_step_s(log_):
+    """The median logged step time, the profiled last step left out."""
+    return statistics.median(r["step_time_s"] for r in log_[:-1])
 
 
 def train_phase():
@@ -2118,11 +2176,10 @@ def train_phase():
     Returns the camformer runs' launches."""
     import shutil
 
-    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs import get_config
     from repro_torch.models import count_params
 
-    SHAPES[TRAIN_SHAPE] = dict(seq_len=TRAIN_S, global_batch=TRAIN_B,
-                               kind="train")
+    assert train_shape(TRAIN_B, TRAIN_S) == TRAIN_SHAPE
     ckpt_root = ROOT / "build" / "train_ckpt"
     shutil.rmtree(ckpt_root, ignore_errors=True)
     runs, lines = [], {}
@@ -2131,9 +2188,11 @@ def train_phase():
             cfg = get_config("camformer-bert", attn_backend=backend,
                              use_kernel=backend == "camformer")
             every = TRAIN_CKPT_EVERY if backend == "camformer" else 10**9
-            trainer, state, launches, wall, peak, prof = train_run(
-                cfg, ckpt_dir=ckpt_root / backend, total_steps=TRAIN_STEPS,
-                ckpt_every=every, profile=True)
+            run = train_run(cfg, TRAIN_SHAPE, ckpt_dir=ckpt_root / backend,
+                            total_steps=TRAIN_STEPS, ckpt_every=every,
+                            profile=True)
+            trainer, state, prof = run["trainer"], run["state"], run["profile"]
+            launches = run["launches"]
             log_ = trainer.metrics_log
             losses = [r["loss"] for r in log_]
             assert len(losses) == TRAIN_STEPS, log_
@@ -2142,12 +2201,13 @@ def train_phase():
             want = 2 * cfg.n_layers * TRAIN_STEPS if cfg.use_kernel else 0
             assert launches["bacam_mvm"] == want, launches
             assert only_bacam_mvm(launches), launches
-            step_s = statistics.median(r["step_time_s"] for r in log_)
+            step_s = median_step_s(log_)
             line = dict(
                 layers=cfg.n_layers, params=count_params(state["params"]),
                 batch=TRAIN_B, seq=TRAIN_S, steps=TRAIN_STEPS,
-                wall_s=wall, median_step_s=step_s,
-                tokens_per_s=TRAIN_B * TRAIN_S / step_s, peak_mem_gb=peak,
+                wall_s=run["wall_s"], median_step_s=step_s,
+                tokens_per_s=TRAIN_B * TRAIN_S / step_s,
+                peak_mem_gb=run["peak_gb"],
                 first_loss=losses[0], last_loss=losses[-1],
                 losses=losses, lr_last=log_[-1]["lr"],
                 grad_norm_last=log_[-1]["grad_norm"],
@@ -2158,12 +2218,13 @@ def train_phase():
 
                 assert latest_step(str(ckpt_root / backend)) == TRAIN_STEPS
                 runs.append({TRAIN_ROW: launches["bacam_mvm"]})
-                del state
+                del state, run
                 torch.cuda.empty_cache()
                 # a second Trainer resumes from the last checkpoint
-                trainer2, state, launches2, _, _, _ = train_run(
-                    cfg, ckpt_dir=ckpt_root / backend,
-                    total_steps=TRAIN_STEPS + 2, ckpt_every=every)
+                run = train_run(cfg, TRAIN_SHAPE, ckpt_dir=ckpt_root / backend,
+                                total_steps=TRAIN_STEPS + 2, ckpt_every=every)
+                trainer2, state, launches2 = (run["trainer"], run["state"],
+                                              run["launches"])
                 assert trainer2.events[0] == (
                     TRAIN_STEPS, "resume", f"restored step_{TRAIN_STEPS}"), \
                     trainer2.events
@@ -2176,7 +2237,7 @@ def train_phase():
                 line["resume"] = dict(
                     event=list(trainer2.events[0]),
                     losses=[r["loss"] for r in trainer2.metrics_log])
-            del state
+            del state, run
             torch.cuda.empty_cache()
             lines[backend] = line
             TRAIN_LINES[backend] = line
@@ -2188,52 +2249,6 @@ def train_phase():
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     return runs
-
-
-def moe_train_phase():
-    """granite-moe-3b-a800m at full width (40 experts padded to 48, top-8,
-    G = 3), cut to MOE_TRAIN_LAYERS layers, ``dense``, bf16 compute and
-    f32 masters, MOE_TRAIN_STEPS steps of ``make_train_step`` at 8 x 1024
-    tokens: every loss finite; prints the aux loss and drop share."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch.steps import init_state, make_train_step
-    from repro_torch.models import count_params, get_model_def
-    from repro_torch.train.data import SyntheticLMData
-
-    cfg = get_config("granite-moe-3b-a800m", n_layers=MOE_TRAIN_LAYERS,
-                     attn_backend="dense")
-    step_fn, opt = make_train_step(get_model_def(cfg), cfg, warmup=2,
-                                   total_steps=MOE_TRAIN_STEPS)
-    state = init_state(cfg, opt, seed=SEED, device="cuda")
-    data = SyntheticLMData(cfg, TRAIN_SHAPE, seed=SEED, device="cuda")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    rows, times = [], []
-    with plain_calls_on_card() as plain:
-        for step in range(MOE_TRAIN_STEPS):
-            batch = data.batch(step)
-            t0 = time.perf_counter()
-            state, metrics = step_fn(state, batch)
-            loss = float(metrics["loss"])
-            times.append(time.perf_counter() - t0)
-            rows.append({k: float(v) for k, v in metrics.items()})
-            assert math.isfinite(loss), rows
-    assert plain == {}, plain
-    assert all(math.isfinite(v) for r in rows for v in r.values()), rows
-    assert all(r["moe_aux_loss"] > 0 for r in rows), rows
-    step_s = statistics.median(times)
-    line = dict(layers=cfg.n_layers, params=count_params(state["params"]),
-                batch=TRAIN_B, seq=TRAIN_S, steps=MOE_TRAIN_STEPS,
-                median_step_s=step_s, tokens_per_s=TRAIN_B * TRAIN_S / step_s,
-                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-                losses=[r["loss"] for r in rows],
-                moe_aux_loss=[r["moe_aux_loss"] for r in rows],
-                moe_drop_frac=[r["moe_drop_frac"] for r in rows])
-    del state
-    torch.cuda.empty_cache()
-    log("train granite-moe-3b-a800m dense bf16 full width, "
-        f"{MOE_TRAIN_LAYERS} layers: " + json.dumps(line))
-    return line
 
 
 HAD_SHAPE = "had"
@@ -2304,11 +2319,10 @@ def had_phase():
 
 def training_phase():
     """Phase 8: train-step parity, full-width camformer-bert training
-    with resume, the granite MoE backward, the HAD recipe.  Returns the
-    launches of the counted runs."""
+    with resume, the HAD recipe.  Returns the launches of the counted
+    runs."""
     train_parity_phase()
     runs = train_phase()
-    moe_train_phase()
     runs.append(had_phase())
     return runs
 
@@ -2615,6 +2629,15 @@ WHISPER_XPRE_ROW = "bacam_mvm (whisper cross-attention prefill)"
 WHISPER_XDEC_ROW = "bacam_mvm (whisper cross-attention decode)"
 LLAVA_ROW = "bacam_mvm (llava prefill)"
 WHISPER_SHARE_ROW = "bacam_mvm (whisper encoder share, model 4)"
+# phase 17's train batches, rows x text tokens: whisper-medium 8 x 448
+# (Whisper's text context; the encoder reads 8 x 1500 stub frames) and
+# recurrentgemma-2b 2 x 2048 (its attention window)
+WHISPER_TRAIN_B, WHISPER_TRAIN_S = 8, 448
+RG_TRAIN_B, RG_TRAIN_S = 2, 2048
+WHISPER_ENC_TRAIN_ROW = "bacam_mvm (whisper encoder, train)"
+WHISPER_DEC_TRAIN_ROW = "bacam_mvm (whisper decoder self-attention, train)"
+WHISPER_X_TRAIN_ROW = "bacam_mvm (whisper cross-attention, train)"
+RG_TRAIN_ROW = "bacam_mvm (recurrentgemma attention, train)"
 # (B * H_kv, R, Skv, W) of kernel 4 there: recurrentgemma's prefill (MQA,
 # G = 10 rows of each position, head_dim 256); whisper's non-causal
 # encoder, its decoder's causal prefill, and its cross-attention to the
@@ -2630,7 +2653,16 @@ FAMILY_MVM_SHAPES = {
     LLAVA_ROW: (VLM_B * 8, 4 * (VLM_PATCHES + VLM_TEXT),
                 VLM_PATCHES + VLM_TEXT, 4),
     # phase 14: a rank's share of whisper's encoder at model = 4, B = 2
-    WHISPER_SHARE_ROW: (2 * 16 // 4, 1500, 1500, 2)}
+    WHISPER_SHARE_ROW: (2 * 16 // 4, 1500, 1500, 2),
+    # phase 17's train steps (forward and recompute): whisper's encoder,
+    # its decoder's causal self-attention and its cross-attention to the
+    # 1500 frames; recurrentgemma's attention (MQA, G = 10 folded, causal
+    # within the window)
+    WHISPER_ENC_TRAIN_ROW: (WHISPER_TRAIN_B * 16, 1500, 1500, 2),
+    WHISPER_DEC_TRAIN_ROW: (WHISPER_TRAIN_B * 16, WHISPER_TRAIN_S,
+                            WHISPER_TRAIN_S, 2),
+    WHISPER_X_TRAIN_ROW: (WHISPER_TRAIN_B * 16, WHISPER_TRAIN_S, 1500, 2),
+    RG_TRAIN_ROW: (RG_TRAIN_B, 10 * RG_TRAIN_S, RG_TRAIN_S, 8)}
 FAMILY_MVM_PATHS = {
     RG_ROW: "phase 10: recurrentgemma-2b camformer use_kernel prefill (one "
             "launch an attention layer)",
@@ -2647,24 +2679,39 @@ FAMILY_MVM_PATHS = {
                "whole-prompt prefill (one launch a layer)",
     WHISPER_SHARE_ROW: "phase 14: each of the 4 ranks' share of a "
                        "whisper-medium encoder layer (4 of 16 heads, "
-                       "B = 2), forward"}
-RG_CHECK_ROWS = 2016  # rows of shape (a) checked per plain-version call
+                       "B = 2), forward",
+    WHISPER_ENC_TRAIN_ROW: "phase 17: whisper-medium camformer use_kernel "
+                           "train step, encoder (forward and recompute, "
+                           "every layer)",
+    WHISPER_DEC_TRAIN_ROW: "phase 17: whisper-medium camformer use_kernel "
+                           "train step, decoder self-attention (forward "
+                           "and recompute, every layer)",
+    WHISPER_X_TRAIN_ROW: "phase 17: whisper-medium camformer use_kernel "
+                         "train step, cross-attention (forward and "
+                         "recompute, every layer)",
+    RG_TRAIN_ROW: "phase 17: recurrentgemma-2b camformer use_kernel train "
+                  "step (forward and recompute, every attention layer)"}
+# the W = 8 rows' plain version runs over slices of RG_CHECK_ROWS rows
+RG_CHECK_ROWS = 2016
 
 
 def families_kernel_phase(flush):
-    """Kernel 4 at every shape phases 7 and 10 launch it at, bit-exact
-    against its plain version and timed beside it, its bound and
+    """Kernel 4 at every shape phases 7, 10, 14 and 17 launch it at,
+    bit-exact against its plain version and timed beside it, its bound and
     ``torch.bmm`` of the ±1 bf16 operands with float32 output (4-byte
     scores, as the function writes): recurrentgemma-2b's prefill (4,
     20160, 2016), W = 8; whisper-medium's encoder (64, 1500, 1500), whose
     1500 keys are no multiple of a group or a key tile, its decoder
     prefill (64, 32, 32), and its cross-attention (64, 32, 1500) at
     prefill and (64, 1, 1500) at each decode step, W = 2; llava's prefill
-    (16, 3584, 896), W = 4.  Then the source's designs timed apart
-    (``mvm_design_phase``).  The plain
-    version's int64 temporaries at (4, 20160, 2016) would take about 10 GB
-    each, so there it runs over slices of RG_CHECK_ROWS rows: the check
-    covers every row, and plain_ms is the time of those slices in turn.
+    (16, 3584, 896), W = 4; phase 17's train steps: whisper's encoder
+    (128, 1500, 1500), decoder self-attention (128, 448, 448) and
+    cross-attention (128, 448, 1500), W = 2, and recurrentgemma's
+    attention (2, 20480, 2048), W = 8.  Then the source's designs timed
+    apart (``mvm_design_phase``).  The plain version's int64 temporaries
+    at (4, 20160, 2016) would take about 10 GB each, so at W = 8 it runs
+    over slices of RG_CHECK_ROWS rows: the check covers every row, and
+    plain_ms is the time of those slices in turn.
     Then kernel 3 at whisper's decode step, checked and timed (logged)."""
     from repro_torch.core.bacam import unpack_bits
     from repro_torch.kernels import bacam_mvm as bmvm
@@ -2678,7 +2725,7 @@ def families_kernel_phase(flush):
                               device=dev, dtype=torch.int32)
                 for n in (r, skv))
         got = bmvm.bacam_mvm(q, k, d=d)
-        step = RG_CHECK_ROWS if name == RG_ROW else r
+        step = RG_CHECK_ROWS if w == 8 else r
 
         def plain(out=None):
             out = torch.empty_like(got) if out is None else out
@@ -2692,7 +2739,7 @@ def families_kernel_phase(flush):
         assert torch.equal(got, want), \
             f"{name}: kernel 4 differs from its plain version"
         del want
-        if name == WHISPER_ENC_ROW:
+        if name in (WHISPER_ENC_ROW, WHISPER_ENC_TRAIN_ROW):
             hold_last_group(got[:, :32])
         qf, kf = (unpack_bits(x, d).to(torch.bfloat16) for x in (q, k))
         library = lambda: torch.bmm(qf, kf.transpose(1, 2),
@@ -4213,6 +4260,158 @@ def assigned_phase():
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 17: four families trained at full width and depth
+
+# (arch, backends, rows, text tokens, steps, peak lr): each batch is
+# train_4k (256 x 4096) cut to what one card holds; whisper-medium's
+# camformer run ends in a checkpoint that a second Trainer resumes for
+# FAMILY_RESUME_STEPS.  whisper's 48 layers overshoot at the Trainer's
+# default 3e-4 (and at 2.5e-4, Whisper medium's published peak) after a
+# 2-step warmup: step 3's loss jumps, and step 4's can end above step
+# 1's; at 1e-4 it ends below on both backends
+FAMILY_TRAIN = (
+    ("whisper-medium", ("camformer", "dense"), WHISPER_TRAIN_B,
+     WHISPER_TRAIN_S, 4, 1e-4),
+    ("recurrentgemma-2b", ("camformer", "dense"), RG_TRAIN_B, RG_TRAIN_S, 3,
+     3e-4),
+    ("rwkv6-3b", ("dense",), 4, 512, 3, 3e-4),
+    ("granite-moe-3b-a800m", ("dense",), TRAIN_B, TRAIN_S, 3, 3e-4))
+FAMILY_RESUME_STEPS = 2
+FULL_TRAIN_SHAPE = "train_4k"
+
+
+def family_train_launches(cfg, steps):
+    """{kernels row: kernel-4 launches} of ``steps`` train steps of
+    ``cfg``: one an attention layer in the forward pass and one in its
+    recompute, on camformer with ``use_kernel``; none otherwise."""
+    if not cfg.use_kernel:
+        return {}
+    if cfg.family == "audio":
+        return {row: 2 * n * steps for row, n in (
+            (WHISPER_ENC_TRAIN_ROW, cfg.enc_layers),
+            (WHISPER_DEC_TRAIN_ROW, cfg.n_layers),
+            (WHISPER_X_TRAIN_ROW, cfg.n_layers))}
+    return {RG_TRAIN_ROW: 2 * (cfg.n_layers // 3) * steps}  # 1 in 3 layers
+
+
+def family_train(arch, backend, b, s, steps, peak_lr):
+    """``arch`` at full width and depth trained through ``Trainer`` at b x
+    s tokens for ``steps`` steps to ``peak_lr``, as ``python -m
+    repro_torch.launch.train --arch <arch>`` drives it (``train_run``;
+    its last step profiled, left out of the median): every step's metrics
+    finite (the last loss below the first on whisper), the exact kernel-4
+    launches of ``family_train_launches``, no plain version on the card,
+    the peak allocated memory below the card's total (printed beside the
+    state's 16 B a parameter), and what stays allocated after ``del``
+    under 0.25 GB; on MoE the aux loss positive and the drop share
+    printed.  whisper on camformer checkpoints its last step (under
+    ``build/``, removed after) and a second Trainer resumes it.  Returns
+    the runs' launches by kernels row."""
+    import shutil
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.models import count_params
+    from repro_torch.train.checkpoint import latest_step
+
+    cfg = get_config(arch, attn_backend=backend,
+                     use_kernel=backend == "camformer")
+    shape, full = train_shape(b, s), SHAPES[FULL_TRAIN_SHAPE]
+    resume = cfg.family == "audio" and cfg.use_kernel
+    ckpt = ROOT / "build" / "train_families" / f"{arch}-{backend}"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    total = torch.cuda.mem_get_info()[1]
+    live_at_entry = torch.cuda.memory_allocated()
+    want = family_train_launches(cfg, steps)
+    runs = []
+    try:
+        run = train_run(cfg, shape, ckpt_dir=ckpt, total_steps=steps,
+                        ckpt_every=steps if resume else 10**9, profile=True,
+                        peak_lr=peak_lr)
+        log_, metrics = run["trainer"].metrics_log, run["metrics"]
+        losses = [r["loss"] for r in log_]
+        assert [r["step"] for r in log_] == list(range(1, steps + 1)), log_
+        assert all(math.isfinite(v) for r in metrics for v in r.values()), \
+            metrics
+        if cfg.family == "audio":
+            assert losses[-1] < losses[0], losses
+        got = {k: v for k, v in run["launches"].items() if v}
+        assert got == want, (arch, backend, got, want)
+        assert run["peak_gb"] * 1e9 < total, (arch, run["peak_gb"], total)
+        runs.append(want)
+        n = count_params(run["state"]["params"])
+        step_s = median_step_s(log_)
+        layers = (dict(encoder=cfg.enc_layers, decoder=cfg.n_layers)
+                  if cfg.family == "audio" else cfg.n_layers)
+        line = dict(
+            layers=layers, params=n, batch=b, seq=s, steps=steps,
+            peak_lr=peak_lr,
+            reduced=dict(shape=FULL_TRAIN_SHAPE,
+                         global_batch=[full["global_batch"], b],
+                         seq_len=[full["seq_len"], s]),
+            wall_s=run["wall_s"], median_step_s=step_s,
+            tokens_per_s=b * s / step_s, peak_mem_gb=run["peak_gb"],
+            state_gb_at_16_bytes=16 * n / 1e9, mem_total_gb=total / 1e9,
+            losses=losses, grad_norm=[r["grad_norm"] for r in log_],
+            lr_last=log_[-1]["lr"], kernel4_launches=want)
+        if cfg.family == "moe":
+            aux = [r["moe_aux_loss"] for r in metrics]
+            assert all(a > 0 for a in aux), aux
+            line.update(moe_aux_loss=aux,
+                        moe_drop_frac=[r["moe_drop_frac"] for r in metrics])
+        prof = run["profile"]
+        del run
+        if resume:
+            assert latest_step(str(ckpt)) == steps
+            torch.cuda.empty_cache()
+            more = steps + FAMILY_RESUME_STEPS
+            run = train_run(cfg, shape, ckpt_dir=ckpt, total_steps=more,
+                            ckpt_every=steps, peak_lr=peak_lr)
+            trainer = run["trainer"]
+            assert trainer.events[0] == (
+                steps, "resume", f"restored step_{steps}"), trainer.events
+            assert [r["step"] for r in trainer.metrics_log] == list(
+                range(steps + 1, more + 1)), trainer.metrics_log
+            assert all(math.isfinite(r["loss"]) for r in trainer.metrics_log)
+            want2 = family_train_launches(cfg, FAMILY_RESUME_STEPS)
+            got = {k: v for k, v in run["launches"].items() if v}
+            assert got == want2, (arch, "resume", got, want2)
+            runs.append(want2)
+            line["resume"] = dict(
+                event=list(trainer.events[0]), wall_s=run["wall_s"],
+                losses=[r["loss"] for r in trainer.metrics_log])
+            del run, trainer
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    left = torch.cuda.memory_allocated() - live_at_entry
+    line["left_after_del_gb"] = left / 1e9
+    assert left < 0.25e9, (arch, backend, "state not freed by del", left)
+    torch.cuda.empty_cache()
+    label = f"{arch} {backend}{' use_kernel' if cfg.use_kernel else ''}"
+    log(f"train {label} bf16 full width and depth: {json.dumps(line)}")
+    log(f"profile train {label} (one step): {json.dumps(prof)}")
+    return runs
+
+
+def family_train_phase():
+    """Phase 17: ``FAMILY_TRAIN``'s runs one at a time, each freed before
+    the next.  What earlier phases left to the cycle collector is
+    collected first (and printed).  Returns the runs' launches."""
+    t0 = time.perf_counter()
+    live = torch.cuda.memory_allocated()
+    gc.collect()
+    log(f"phase 17 entry: {live / 1e9:.6g} GB live, "
+        f"{(live - torch.cuda.memory_allocated()) / 1e9:.6g} GB of it freed "
+        f"by gc.collect()")
+    runs = []
+    for arch, backends, b, s, steps, peak_lr in FAMILY_TRAIN:
+        for backend in backends:
+            runs += family_train(arch, backend, b, s, steps, peak_lr)
+            log(f"phase 17 elapsed {time.perf_counter() - t0:.1f}s: "
+                f"{arch}/{backend}")
+    return runs
+
+
 def kernel_instance(mangled):
     """``name<N, ...>`` of a mangled ``..._kernel<N, ...>`` (Itanium: a name
     is its length, then its characters; int and bool template arguments
@@ -4352,6 +4551,8 @@ def main():
     log(f"elapsed {time.perf_counter() - t0:.1f}s: sharded serving shares")
     runs += assigned_phase()
     log(f"elapsed {time.perf_counter() - t0:.1f}s: assigned LMs")
+    runs += family_train_phase()
+    log(f"elapsed {time.perf_counter() - t0:.1f}s: families trained")
     for row in rows:  # launches over every path run
         row["launches"] = sum(run.get(row["name"], 0) for run in runs)
         if row["path"] != "none":

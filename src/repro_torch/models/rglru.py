@@ -104,11 +104,40 @@ def _causal_conv(x, conv_state, w, b):
 def _rg_lru(a, drive, h):
     """h_t = a_t * h_{t-1} + drive_t over time, float32.  a, drive:
     (B, S, r); h: (B, r).  Returns (every h_t (B, S, r), the last)."""
-    ys = []
-    for t in range(a.shape[1]):
-        h = a[:, t] * h + drive[:, t]
-        ys.append(h)
-    return torch.stack(ys, dim=1), h
+    ys = _Scan.apply(a, drive, h)
+    return ys, ys[:, -1]
+
+
+class _Scan(torch.autograd.Function):
+    """The RG-LRU's loop with its adjoint written out.  The forward pass
+    records no graph (two operations a step); the backward pass runs
+    G_{t-1} = g_{t-1} + a_t * G_t in one reverse loop (G_t the gradient
+    of h_t, g_t that of the output at t), then da_t = G_t * h_{t-1},
+    ddrive_t = G_t and dh_0 = a_0 * G_0 at once.  Each product and sum
+    is the one autograd forms through the loop (a sum of two terms), so
+    the gradients are the same bit for bit, without an autograd node a
+    step to create and run."""
+
+    @staticmethod
+    def forward(ctx, a, drive, h0):
+        ys, h = [], h0
+        for a_t, d_t in zip(a.unbind(1), drive.unbind(1)):
+            h = a_t * h + d_t
+            ys.append(h)
+        ys = torch.stack(ys, dim=1)
+        ctx.save_for_backward(a, ys, h0)
+        return ys
+
+    @staticmethod
+    def backward(ctx, g):
+        a, ys, h0 = ctx.saved_tensors
+        a_s, g_s = a.unbind(1), g.unbind(1)
+        grads = [g_s[-1]]
+        for t in range(a.shape[1] - 1, 0, -1):
+            grads.append(g_s[t - 1] + a_s[t] * grads[-1])
+        grads = torch.stack(grads[::-1], dim=1)
+        h_prev = torch.cat([h0[:, None], ys[:, :-1]], dim=1)
+        return grads * h_prev, grads, a_s[0] * grads[:, 0]
 
 
 def _apply_rec(p, x, cfg, state):

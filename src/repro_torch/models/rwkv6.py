@@ -92,14 +92,65 @@ def _wkv(r, k, v, w, u, state):
     """The WKV recurrence over time, float32.  r, k, v, w: (B, S, H, c);
     u: (H, c); state: (B, H, c, c).  Each step reads the old state:
     y_t = r_t . (S + u * k_t v_t^T), then S = w_t * S + k_t v_t^T.
-    Returns (y (B, S, H, c), the last state)."""
-    u4 = u[None, :, :, None]
-    ys = []
-    for t in range(r.shape[1]):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]  # (B, H, c, c)
-        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], state + u4 * kv))
-        state = w[:, t, :, :, None] * state + kv
-    return torch.stack(ys, dim=1), state
+    Returns (y (B, S, H, c), the last state).
+
+    The loop runs time-major with (batch, head) folded into one batch
+    axis (``bmm`` for the einsum ``bhi,bhij->bhj`` it equals), inside
+    ``_WKV``, whose backward pass is written out."""
+    b, s, h, c = r.shape
+    steps = lambda x, *tail: x.transpose(0, 1).reshape(s, b * h, *tail)
+    inputs = (steps(r, 1, c), steps(k, c, 1), steps(v, 1, c),
+              steps(w, c, 1), u.expand(b, h, c).reshape(b * h, c, 1),
+              state.reshape(b * h, c, c))
+    keep = torch.is_grad_enabled() and any(x.requires_grad for x in inputs)
+    y, state = _WKV.apply(keep, *inputs)
+    return y.reshape(s, b, h, c).transpose(0, 1), state.reshape(b, h, c, c)
+
+
+class _WKV(torch.autograd.Function):
+    """The WKV loop, time-major: r, v (S, BH, 1, c); k, w (S, BH, c, 1);
+    u (BH, c, 1); the state (BH, c, c).  The forward pass records no
+    graph (six operations a step) and, when ``keep``, keeps every step's
+    incoming state S_{t-1}.  The backward pass runs one reverse loop of
+    four operations a step: with X_t = S_{t-1} + u * k_t v_t^T, dr_t =
+    dy_t X_t^T and dX_t = r_t^T dy_t (the products autograd forms for the
+    step's ``bmm``), and the state's adjoint dS_{t-1} = w_t * dS_t + dX_t;
+    then at once d(k_t v_t^T) = u * dX_t + dS_t, dk, dv, dw_t = sum_j
+    dS_t * S_{t-1} and du = sum_t,j dX_t * k_t v_t^T.  Each step's
+    operation is autograd's on the same operands, so every gradient but
+    du (its sum over the steps runs in another order) is the same bit
+    for bit, without autograd's nodes a step to create and run."""
+
+    @staticmethod
+    def forward(ctx, keep, r, k, v, w, u, state):
+        ys, states = [], []
+        for r_t, k_t, v_t, w_t in zip(r, k, v, w):
+            if keep:
+                states.append(state)
+            kv = k_t * v_t  # (BH, c, c)
+            ys.append(torch.bmm(r_t, state + u * kv))
+            state = w_t * state + kv
+        if keep:
+            ctx.save_for_backward(r, k, v, w, u, torch.stack(states))
+        return torch.stack(ys), state
+
+    @staticmethod
+    def backward(ctx, dy, d_state):
+        r, k, v, w, u, states = ctx.saved_tensors
+        kv = k * v
+        x = states + u * kv
+        d_s, dr, d_x, d_ss = d_state, [], [], []
+        for t in range(r.shape[0] - 1, -1, -1):
+            d_ss.append(d_s)  # the gradient of S_t
+            dr.append(torch.bmm(dy[t], x[t].transpose(1, 2)))
+            d_x.append(torch.bmm(r[t].transpose(1, 2), dy[t]))
+            d_s = w[t] * d_s + d_x[-1]
+        dr, d_x, d_ss = (torch.stack(g[::-1]) for g in (dr, d_x, d_ss))
+        d_kv = u * d_x + d_ss
+        return (None, dr, (d_kv * v).sum(-1, keepdim=True),
+                (d_kv * k).sum(-2, keepdim=True),
+                (d_ss * states).sum(-1, keepdim=True),
+                (d_x * kv).sum((0, 3))[..., None], d_s)
 
 
 def _time_mix(p, x, cfg, x_prev, state):

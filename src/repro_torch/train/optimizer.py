@@ -9,10 +9,17 @@ The update runs the reference's order: clip the gradients to a global
 norm, then m and v, then the bias corrections, then ``u = m_hat /
 (sqrt(v_hat) + eps) + wd * p`` and ``p - lr * u``, all in float32.
 (``torch.optim.AdamW`` decays the parameter before the Adam step, a
-different rounding.)  Each stage is one ``torch._foreach_*`` call over
-all leaves, and the update writes params, m and v in place (the
-gradients are left as they are).  The step
-count is a 0-d int32 host tensor, so the schedule and the bias
+different rounding.)  The update writes params, m and v in place (the
+gradients are left as they are).  It takes the global norm over the
+whole tree, then walks the leaves in ``tree_leaves`` order in groups of
+at most ``GROUP_BYTES`` float32 bytes (a larger leaf is a group of its
+own) and runs every stage on one group, each stage one
+``torch._foreach_*`` call, before the next group: so the temporaries of
+one group are live at a time, and the update needs about two groups'
+bytes beside params, m, v and the gradients instead of three trees'.
+Every element goes through the same operations in the same order as
+with one group over all leaves, so the result is the same bit for bit.
+The step count is a 0-d int32 host tensor, so the schedule and the bias
 corrections are host scalars and the update reads nothing back from the
 device.
 
@@ -32,9 +39,12 @@ import torch
 from repro_torch.models.module import tree_leaves, tree_map
 
 __all__ = ["adamw", "cosine_schedule", "constant_schedule", "global_norm",
-           "sharded_global_norm", "clip_by_global_norm", "Optimizer"]
+           "sharded_global_norm", "clip_by_global_norm", "Optimizer",
+           "GROUP_BYTES"]
 
 _F32 = torch.float32
+# the float32 bytes of one group of leaves that the update runs at a time
+GROUP_BYTES = 2**30
 
 
 class Optimizer(NamedTuple):
@@ -89,9 +99,26 @@ def clip_by_global_norm(tree, max_norm: float, norm=None):
     tree's ``global_norm``."""
     norm = global_norm(tree) if norm is None else norm
     scaled = iter(torch._foreach_mul(
-        [x.to(_F32) for x in tree_leaves(tree)],
-        torch.clamp(max_norm / (norm + 1e-9), max=1.0)))
+        [x.to(_F32) for x in tree_leaves(tree)], _clip_factor(norm, max_norm)))
     return tree_map(lambda _: next(scaled), tree), norm
+
+
+def _clip_factor(norm, max_norm):
+    return torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+
+
+def _groups(leaves):
+    """Runs of consecutive leaf indices of at most GROUP_BYTES float32
+    bytes each; a leaf larger than that is a run of its own."""
+    groups, size = [], 0
+    for i, x in enumerate(leaves):
+        n = 4 * x.numel()
+        if not groups or size + n > GROUP_BYTES:
+            groups.append([])
+            size = 0
+        groups[-1].append(i)
+        size += n
+    return groups
 
 
 def adamw(schedule: Callable, b1: float = 0.9, b2: float = 0.95,
@@ -118,25 +145,30 @@ def adamw(schedule: Callable, b1: float = 0.9, b2: float = 0.95,
             bc1 = f(1 - torch.tensor(b1, dtype=_F32) ** stepf)
             bc2 = f(1 - torch.tensor(b2, dtype=_F32) ** stepf)
             lr_f = f(lr)
-        grads, gnorm = clip_by_global_norm(grads, clip_norm, norm)
-        g = tree_leaves(grads)
-        m, v, p = (tree_leaves(state["m"]), tree_leaves(state["v"]),
-                   tree_leaves(params))
-        torch._foreach_mul_(m, f(b1))
-        torch._foreach_add_(m, torch._foreach_mul(g, f(1 - b1)))
-        torch._foreach_mul_(v, f(b2))
-        gg = torch._foreach_mul(g, f(1 - b2))
-        torch._foreach_mul_(gg, g)
-        torch._foreach_add_(v, gg)
-        del gg
-        den = torch._foreach_div(v, bc2)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, eps)
-        u = torch._foreach_div(m, bc1)
-        torch._foreach_div_(u, den)
-        del den
-        torch._foreach_add_(u, torch._foreach_mul(p, f(weight_decay)))
-        torch._foreach_sub_(p, torch._foreach_mul(u, lr_f))
+        gnorm = global_norm(grads) if norm is None else norm
+        scale = _clip_factor(gnorm, clip_norm)
+        leaves = [tree_leaves(t) for t in (grads, state["m"], state["v"],
+                                           params)]
+        for idx in _groups(leaves[0]):
+            gl, m, v, p = ([t[i] for i in idx] for t in leaves)
+            g = torch._foreach_mul([x.to(_F32) for x in gl], scale)
+            torch._foreach_mul_(m, f(b1))
+            torch._foreach_add_(m, torch._foreach_mul(g, f(1 - b1)))
+            torch._foreach_mul_(v, f(b2))
+            gg = torch._foreach_mul(g, f(1 - b2))
+            torch._foreach_mul_(gg, g)
+            del g
+            torch._foreach_add_(v, gg)
+            del gg
+            den = torch._foreach_div(v, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, eps)
+            u = torch._foreach_div(m, bc1)
+            torch._foreach_div_(u, den)
+            del den
+            torch._foreach_add_(u, torch._foreach_mul(p, f(weight_decay)))
+            torch._foreach_sub_(p, torch._foreach_mul(u, lr_f))
+            del u
         return params, {"m": state["m"], "v": state["v"], "step": step}, {
             "grad_norm": gnorm, "lr": lr}
 

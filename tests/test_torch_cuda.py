@@ -1507,3 +1507,36 @@ def test_serving_shares_equal_the_unsplit_steps_on_the_card(cuda, arch,
     assert n_got[1] > 0 and (arch == "recurrentgemma-2b" or n_got[0] > 0)
     for g, w in zip(got, want):
         assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+def test_adamw_update_temporaries_bounded_by_groups(cuda, monkeypatch):
+    """One ``adamw`` update of 8 float32 leaves of 256 MiB on the card
+    (two groups of ``GROUP_BYTES``): the peak allocated memory rises by at
+    most 3 groups' bytes plus 1 MiB (one ``_foreach`` call a stage over
+    all leaves would take 3 trees), and params, m and v equal, bit for
+    bit, the update run as one group over all leaves on copies of the
+    same tensors."""
+    from repro_torch.train import optimizer as t_opt
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tree = lambda s: [torch.randn(64 * 2**20, generator=gen, device=cuda)
+                      * s for _ in range(8)]
+    opt = t_opt.adamw(t_opt.constant_schedule(1e-3))
+    params, grads = tree(1.0), tree(0.1)
+    state = {"m": tree(0.01), "v": [x.abs() for x in tree(0.01)],
+             "step": torch.zeros((), dtype=torch.int32)}
+    want_p = [x.clone() for x in params]
+    want_s = dict(state, m=[x.clone() for x in state["m"]],
+                  v=[x.clone() for x in state["v"]])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    opt.update(grads, state, params)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - before
+    assert rise <= 3 * t_opt.GROUP_BYTES + 2**20, rise
+    monkeypatch.setattr(t_opt, "GROUP_BYTES", 2**62)
+    opt.update(grads, want_s, want_p)
+    for got, want in ((params, want_p), (state["m"], want_s["m"]),
+                      (state["v"], want_s["v"])):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
