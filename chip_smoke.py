@@ -225,7 +225,31 @@ Phases, in order (each raises on failure; nothing is caught):
      the state's 16 B a parameter), what stays allocated after ``del``
      under 0.25 GB, granite's aux loss positive and its drop share
      printed; step s, tokens/s, losses, grad norms and a profiled
-     step's device-idle share on ``train <arch> ...`` lines.
+     step's device-idle share on ``train <arch> ...`` lines;
+ 18. the long-context shapes at full length: ``mistral-nemo-12b`` at
+     full width and depth, its bf16 weights drawn once for three legs,
+     each leg's cache freed before the next: (a) prefill_32k and
+     decode_32k on ``dense`` in the engine ``python -m
+     repro_torch.launch.serve --arch mistral-nemo-12b --backend dense
+     --max-batch 2 --max-len 32768 --prefill-chunk 4096`` builds: 2
+     seeded 32,704-token prompts prefilled in 8 chunks of 4,096 (kernel
+     2b over up to 32,768 keys) and decoded to 64 new tokens (kernel 2,
+     512 one-page splits), with ``serve_run``'s checks (kernel 2b once a
+     layer a chunk) and TTFT, decode tokens/s and the pool's and the
+     run's peak GB printed; (b) long_500k on camformer's paged pools
+     (8,192 live pages and the trash page, filled from the seed: random
+     packed keys, N(0, 1) values, a k_scale a kv head; the page table a
+     seeded permutation), 8 decode steps from position 524,280 through
+     ``lm_decode_paged`` on ``paged_impl="fused"`` (kernel 1 over 8,192
+     pages a layer) and again from the same state on ``"gather"``; (c)
+     long_500k on a contiguous cache of 524,288 positions through
+     ``make_serve_step`` with ``use_kernel`` (kernel 3) and without: in
+     (b) and (c) the two routes' stage-1 candidates identical at every
+     step and layer (each layer's distinct scores and tied pairs
+     printed at step 1), their greedy tokens identical and logits within
+     1e-5 of max |logits|, exact launch counts, no plain version on the
+     card, the cache written in place and the peak below the card's
+     total.
 
 Phase 3 also holds kernels 1, 2 and 2b at each geometry phase 16 serves
 (head_dim 128, W = 4: G = 1 on 32 kv heads for codeqwen1.5-7b and on 16
@@ -245,7 +269,11 @@ product, popc) apart at one shape of each W on a path and at 1500 and
 1504 keys, and logs them on a ``bacam_mvm designs`` line; phase 4 also
 runs granite smoke at G = 3 card against CPU, and one full-width
 granite ``apply_moe`` layer card against CPU (routing identical,
-outputs within 1e-5).
+outputs within 1e-5); and kernels 1 and 3 over 524,288 keys (bit-exact
+at the first and the last of phase 18's steps), kernel 2 over 2 slots of
+32,768 keys and kernel 2b at phase 18's last 4,096-row prefill chunk
+(within 1e-5), a row each whose launches are phase 18's
+(``LONG_ROWS``).
 
 The line before the last is the ``kernels`` JSON object (one row per
 kernel and shape: the paged flash and contiguous stage-1 kernels have a
@@ -254,7 +282,8 @@ also a ``(binary)`` and a verify row, kernels 1, 2 and 2b a row each at
 yi-34b's shapes, the BA-CAM matrix kernel a ``(train)`` row at the
 train step's shape and a row at each of phase 10's five shapes, at
 llava's, at a phase-14 share of whisper's encoder and at each of phase
-17's four train shapes; ``path`` names the runs that launch it); the
+17's four train shapes, kernels 1, 3, 2 and 2b a row each at phase
+18's shapes; ``path`` names the runs that launch it); the
 last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA card, or without the rest of the repository
 next to this file, it exits non-zero and prints no result.
@@ -918,6 +947,180 @@ def geometry_kernel_rows(flush, hkv, g, archs):
     return rows
 
 
+# the long-context shapes (configs/base.SHAPES) on
+# mistral-nemo-12b (8 kv heads, G = 4, head_dim 128, W = 4): phase 18
+LONG_ARCH = "mistral-nemo-12b"
+LONG_HKV, LONG_G, LONG_D = 8, 4, 128
+LONG_PAGE = 64
+# prefill_32k / decode_32k: 2 slots of 32,768 tokens, prompts of 32,704
+# in chunks of 4,096, then 64 new tokens (the last reaches 32,768)
+LONG_SLOTS, LONG_LEN, LONG_CHUNK, LONG_NEW = 2, 32768, 4096, 64
+LONG_PROMPT = LONG_LEN - LONG_NEW
+# long_500k: one slot decoding 8 steps from 524,280 written positions
+LONG_KEYS, LONG_STEPS = 524288, 8
+LONG_FILLED = LONG_KEYS - LONG_STEPS
+LONG_ROWS = {  # phase 18's kernel-row names, by the launch counts' names
+    "bacam_paged_topk_stage1": "bacam_paged_topk_stage1 [long_500k paged]",
+    "bacam_topk_stage1": "bacam_topk_stage1 [long_500k contiguous]",
+    "paged_flash_decode": "paged_flash_decode [decode_32k]",
+    "paged_flash_decode (sq>1)": "paged_flash_decode (sq>1) [prefill_32k]"}
+
+
+def long_words(gen, *shape):
+    """Random packed-key words over the whole int32 range, on the card."""
+    return torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                         device="cuda", dtype=torch.int32)
+
+
+def long_kernel_phase(flush):
+    """Kernels 1, 3, 2 and 2b at phase 18's shapes, each against its plain
+    version and timed, a row each whose launches are phase 18's:
+    kernel 1 over one slot's 8,192 pages (524,288 keys, a permutation of
+    the pool's pages, G = 4 on 8 kv heads, W = 4), kernel 3 over 8
+    matrices of G = 4 rows and 524,288 keys, both at the first and the
+    last decode step's kv_len (bit-exact; the last timed); kernel 2 over
+    2 slots at kv_len 32,768 and kernel 2b at the last 4,096-token chunk
+    of two 32,704-token prompts (q_pos 28,672; within 1e-5)."""
+    from repro_torch.kernels import bacam_decode as bdec
+    from repro_torch.kernels import bacam_topk as btk
+    from repro_torch.kernels import paged_flash_decode as pfd
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    hkv, g, d = LONG_HKV, LONG_G, LONG_D
+    w = d // 32
+    rows = []
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    # --- kernel 1: the paged long_500k decode step
+    n_live = LONG_KEYS // LONG_PAGE
+    kp = long_words(gen, 1 + n_live, hkv, LONG_PAGE, w)
+    table = (torch.randperm(n_live, generator=gen, device=dev) + 1).to(
+        torch.int32)[None]
+    q = long_words(gen, 1, hkv, g, w)
+    for kv in (LONG_FILLED + 1, LONG_KEYS):
+        kv_len = torch.tensor([kv], **i32)
+        a = (q, kp, table, kv_len, kv_len - 1)
+        got = bdec.bacam_paged_topk_stage1(*a, d=d)
+        want = bdec.bacam_paged_topk_ref(*a[:4], d, q_pos=a[4])
+        n_valid, n_dead = check_candidates(
+            f"bacam_paged_topk_stage1 long_500k kv_len {kv}", got, want, 16,
+            2)
+        log(f"bacam_paged_topk_stage1 long_500k (1 slot, {n_live} pages, "
+            f"G={g} on {hkv} kv heads, W={w}) kv_len {kv}: bit-exact "
+            f"({n_valid} valid candidates, {n_dead} fully masked groups, "
+            f"{got[0].unique().numel()} distinct scores)")
+    bytes_ = (q.numel() * 4 + LONG_KEYS * hkv * w * 4 + table.numel() * 4
+              + 2 * 4 + 2 * got[0].numel() * 4)
+    rows.append(dict(
+        name=LONG_ROWS["bacam_paged_topk_stage1"], route="cuda",
+        path="phase 18 (b): mistral-nemo-12b camformer long_500k paged "
+             "decode",
+        source="src/repro_torch/csrc/bacam_decode.cu",
+        replaces="src/repro/kernels/bacam_decode.py:137", max_abs_err=0.0,
+        ms=cuda_ms(lambda: bdec.bacam_paged_topk_stage1(*a, d=d),
+                   flush=flush),
+        plain_ms=cuda_ms(lambda: bdec.bacam_paged_topk_ref(
+            *a[:4], d, q_pos=a[4]), flush=flush),
+        **bound(bytes_, 3 * LONG_KEYS * hkv * w * g / INT32_OP_PER_S),
+        library_ms=None))
+    log(f"{rows[-1]['name']}: kernel {rows[-1]['ms']:.6g} ms, plain "
+        f"{rows[-1]['plain_ms']:.6g} ms, bound {rows[-1]['bound_ms']:.6g} "
+        f"ms by {rows[-1]['bound_by']}")
+    del kp, got, want, a
+
+    # --- kernel 3: the contiguous long_500k decode step (B * H_kv = 8
+    # matrices of the G = 4 rows of a kv head)
+    k = long_words(gen, hkv, LONG_KEYS, w)
+    q = long_words(gen, hkv, g, w)
+    for kv in (LONG_FILLED + 1, LONG_KEYS):
+        kvl = torch.full((hkv,), kv, **i32)
+        a = (q, k, (kvl - 1)[:, None].expand(hkv, g).contiguous(), kvl)
+        got = btk.bacam_topk_stage1(*a, d=d, sq=1)
+        want = btk.bacam_topk_stage1_plain(*a, d=d)
+        n_valid, n_dead = check_candidates(
+            f"bacam_topk_stage1 long_500k kv_len {kv}", got, want, 16, 2)
+        log(f"bacam_topk_stage1 long_500k ({hkv} x {g} rows, {LONG_KEYS} "
+            f"keys, W={w}) kv_len {kv}: bit-exact ({n_valid} valid "
+            f"candidates, {n_dead} fully masked groups)")
+    bytes_ = (q.numel() * 4 + k.numel() * 4 + a[2].numel() * 4 + hkv * 4
+              + 2 * got[0].numel() * 4)
+    rows.append(dict(
+        name=LONG_ROWS["bacam_topk_stage1"], route="cuda",
+        path="phase 18 (c): mistral-nemo-12b camformer long_500k "
+             "contiguous decode (use_kernel)",
+        source="src/repro_torch/csrc/bacam_topk.cu",
+        replaces="src/repro/kernels/bacam_topk.py:154", max_abs_err=0.0,
+        ms=cuda_ms(lambda: btk.bacam_topk_stage1(*a, d=d, sq=1),
+                   flush=flush),
+        plain_ms=cuda_ms(lambda: btk.bacam_topk_stage1_plain(*a, d=d),
+                         flush=flush),
+        **bound(bytes_, 3 * LONG_KEYS * hkv * w * g / INT32_OP_PER_S),
+        library_ms=None))
+    log(f"{rows[-1]['name']}: kernel {rows[-1]['ms']:.6g} ms, plain "
+        f"{rows[-1]['plain_ms']:.6g} ms, bound {rows[-1]['bound_ms']:.6g} "
+        f"ms by {rows[-1]['bound_by']}")
+    del k, got, want, a
+
+    # --- kernels 2 and 2b on the 2-slot pools of prefill_32k / decode_32k
+    b, np_ = LONG_SLOTS, LONG_LEN // LONG_PAGE
+    shape = (1 + b * np_, hkv, LONG_PAGE, d)
+    kpool = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vpool = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    table = (torch.randperm(b * np_, generator=gen, device=dev) + 1).to(
+        torch.int32).reshape(b, np_)
+    chunk_pos = LONG_PROMPT // LONG_CHUNK * LONG_CHUNK  # 28,672
+    for name, sq, kv, qpos in (
+            ("paged_flash_decode", 1, LONG_LEN, LONG_LEN - 1),
+            ("paged_flash_decode (sq>1)", LONG_CHUNK, LONG_PROMPT,
+             chunk_pos)):
+        kv_len = torch.full((b,), kv, **i32)
+        q_pos = torch.full((b,), qpos, **i32)
+        qr = torch.randn((b, hkv, g * sq, d), generator=gen,
+                         device=dev) * d**-0.5
+        a = (qr, kpool, vpool, table, kv_len, q_pos)
+        got = pfd.paged_flash_decode(*a, sq=sq)
+        want = pfd.paged_flash_decode_ref(*a, sq=sq)
+        err, ok = close(got, want, 1e-5)
+        design, _ = pfd.plan(b, hkv, g * sq, d, d, LONG_PAGE, np_, sq, True)
+        label = (f"{name} {LONG_ROWS[name].split('[')[1][:-1]} ({b} slots, "
+                 f"{g * sq} rows a kv head, kv_len {kv}, design "
+                 f"{pfd.DESIGNS[design]})")
+        assert ok, f"{label}: max abs err {err}"
+        log(f"{label}: max abs err {err:.3g} (tol 1e-5 rel+abs)")
+        del want
+        pairs = causal_keys(kv_len.cpu(), q_pos.cpu(), sq)
+        bytes_ = (qr.numel() * 4 + 2 * b * kv * hkv * d * 2
+                  + table.numel() * 4 + 2 * b * 4 + got.numel() * 4)
+        # QK^T and PV, 2 FLOPs a multiply-add, over the causal (row, key)
+        # pairs of each of the G rows
+        flops = 2 * 2 * pairs * hkv * d * g
+        op_s = (max(flops / 2 / F32_FLOP_PER_S,
+                    3 * flops / 2 / BF16_TC_FLOP_PER_S)
+                if pfd.DESIGNS[design] == "chunk tiles"
+                else flops / F32_FLOP_PER_S)
+        rows.append(dict(
+            name=LONG_ROWS[name], route="cuda",
+            path=(f"phase 18 (a): mistral-nemo-12b dense "
+                  f"{'prefill chunks' if sq > 1 else 'decode'}, 2 x 32,768"),
+            source="src/repro_torch/csrc/paged_flash_decode.cu",
+            replaces="src/repro/kernels/paged_flash_decode.py:228",
+            max_abs_err=err,
+            ms=cuda_ms(lambda: pfd.paged_flash_decode(*a, sq=sq),
+                       flush=flush),
+            plain_ms=cuda_ms(lambda: pfd.paged_flash_decode_ref(*a, sq=sq),
+                             flush=flush),
+            **bound(bytes_, op_s),
+            library_ms=cuda_ms(library_attention(a, sq), flush=flush)))
+        log(f"{rows[-1]['name']}: kernel {rows[-1]['ms']:.6g} ms, plain "
+            f"{rows[-1]['plain_ms']:.6g} ms, SDPA "
+            f"{rows[-1]['library_ms']:.6g} ms, bound "
+            f"{rows[-1]['bound_ms']:.6g} ms by {rows[-1]['bound_by']}")
+        del got, qr, a
+    torch.cuda.synchronize()
+    return rows
+
+
 def bound(bytes_, op_s):
     byte_s = bytes_ / HBM_BYTES_PER_S
     return dict(bound_ms=max(byte_s, op_s) * 1e3,
@@ -1415,13 +1618,14 @@ def profile_run(eng, vocab, sampling):
     return dict(ticks=eng.ticks - ticks0, **prof)
 
 
-def build_served(arch, backend, *, spec_k=0):
+def build_served(arch, backend, *, spec_k=0, flags=()):
     """The engine ``python -m repro_torch.launch.serve --arch <arch>
     --backend <backend> --max-batch 8 --max-len 1024 --page-size 64
-    --mode overlap [--spec-k N]`` builds: its flags parsed
-    by ``add_engine_args`` and the engine built by ``build_engine``, which
-    draws seeded random weights (``--seed`` 0) at the config's compute
-    dtype, leaf by leaf, on the card."""
+    --mode overlap [--spec-k N] [flags]`` builds (``flags`` override
+    the sizes): its flags parsed by ``add_engine_args`` and the engine
+    built by ``build_engine``, which draws seeded random weights
+    (``--seed`` 0) at the config's compute dtype, leaf by leaf, on the
+    card."""
     import argparse
 
     from repro_torch.launch.cli import add_engine_args, build_engine
@@ -1433,25 +1637,34 @@ def build_served(arch, backend, *, spec_k=0):
             "--seed", str(SEED)]
     if spec_k:
         argv += ["--spec-k", str(spec_k)]
-    return build_engine(ap.parse_args(argv))
+    return build_engine(ap.parse_args(argv + list(flags)))
+
+
+def tensor_bytes(tree):
+    from repro_torch.models.module import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
 def serve_run(backend, *, arch="camformer-bert", spec_k=0, sampling=None,
-              profile=True):
+              profile=True, flags=(), requests=None, chunks=1, keep=None):
     """``arch`` at full width with seeded random weights in its compute
     dtype (bf16), served by the engine of ``build_served`` (8 slots,
-    1024 tokens, 64-token pages, overlap mode) for the slice's 8
-    requests of 32 new tokens: every request finishes on ``length`` with
-    32 in-vocabulary tokens, no tick fails, one readback a tick, no
-    plain version runs on the card, and the peak allocated memory, of
-    the weights' draw and of the run, stays below the card's total
+    1024 tokens, 64-token pages, overlap mode, or what ``flags`` set)
+    for the slice's 8 requests of 32 new tokens (or ``requests(vocab)``):
+    every request finishes on ``length`` with its ``max_new``
+    in-vocabulary tokens, no tick fails, one readback a tick, no plain
+    version runs on the card, and the peak allocated memory, of the
+    weights' draw and of the run, stays below the card's total
     (``mem_get_info``).  Without speculation the launch counts on
     ``camformer`` and ``dense`` are exact: on ``camformer`` kernel 1 once
     a layer a decode tick and no flash launch (its prefill chunks gather
     in plain PyTorch, as the reference's do); on ``dense`` kernel 2 once
-    a layer a decode tick, kernel 2b once a layer a prefill tick and no
-    kernel-1 launch.  Returns (requests, launches, the slice line's
-    numbers, layers)."""
+    a layer a decode tick, kernel 2b once a layer a prefill chunk
+    (``chunks`` a prefill tick) and no kernel-1 launch.  With ``keep``
+    (a dict) the engine's weights are kept there and left out of the
+    bytes that must be freed.  Returns (requests, launches, the slice
+    line's numbers, layers)."""
     from repro_torch.models import count_params
 
     sampling = sampling or {}
@@ -1460,13 +1673,14 @@ def serve_run(backend, *, arch="camformer-bert", spec_k=0, sampling=None,
     live_at_entry = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = build_served(arch, backend, spec_k=spec_k)
+    eng = build_served(arch, backend, spec_k=spec_k, flags=flags)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_peak = torch.cuda.max_memory_allocated()
     cfg = eng.cfg
     n_params = count_params(eng.params)
-    reqs = slice_requests(cfg.vocab, SEED, **sampling)
+    reqs = (requests or (lambda v: slice_requests(v, SEED, **sampling)))(
+        cfg.vocab)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     with plain_calls_on_card() as plain:
@@ -1485,7 +1699,8 @@ def serve_run(backend, *, arch="camformer-bert", spec_k=0, sampling=None,
     for r in reqs:
         assert r.finish_reason == "length", (label, r.rid, r.finish_reason,
                                              r.error)
-        assert len(r.tokens) == 32, (label, r.rid, len(r.tokens))
+        assert len(r.tokens) == r.sampling.max_new, (label, r.rid,
+                                                     len(r.tokens))
         assert all(0 <= t < cfg.vocab for t in r.tokens), (label, r.rid)
     assert eng.readbacks == eng.ticks + eng.prefill_ticks, (
         label, eng.readbacks, eng.ticks, eng.prefill_ticks)
@@ -1502,7 +1717,8 @@ def serve_run(backend, *, arch="camformer-bert", spec_k=0, sampling=None,
             assert launches["paged_flash_decode"] == n * eng.ticks, (
                 label, launches, eng.ticks)
             assert launches["paged_flash_decode (sq>1)"] == (
-                n * eng.prefill_ticks), (label, launches, eng.prefill_ticks)
+                n * chunks * eng.prefill_ticks), (label, launches,
+                                                  eng.prefill_ticks)
             assert flash == launches["paged_flash_decode"] + launches[
                 "paged_flash_decode (sq>1)"], (label, launches)
             assert launches["bacam_paged_topk_stage1"] == 0, (label,
@@ -1512,6 +1728,10 @@ def serve_run(backend, *, arch="camformer-bert", spec_k=0, sampling=None,
         wall_s=wall, ticks=eng.ticks, ticks_per_s=eng.ticks / wall,
         tokens=n_tok, tokens_per_s=n_tok / wall,
         ttft_p50_s=statistics.median(ttft), ttft_max_s=ttft[-1],
+        # the tokens after each request's first, over the time after the
+        # last first token
+        decode_tokens_per_s=(n_tok - len(reqs)) / (wall - ttft[-1]),
+        pool_gb=tensor_bytes(eng.caches) / 1e9,
         readbacks=eng.readbacks, prefill_ticks=eng.prefill_ticks,
         host_blocked_s=eng.blocked_s,
         peak_mem_gb=peak / 1e9, build_peak_mem_gb=build_peak / 1e9,
@@ -1528,10 +1748,14 @@ def serve_run(backend, *, arch="camformer-bert", spec_k=0, sampling=None,
     if profile:
         log(f"profile {arch}/{label}: "
             f"{json.dumps(profile_run(eng, cfg.vocab, sampling))}")
+    kept = 0
+    if keep is not None:
+        keep["params"] = eng.params
+        kept = tensor_bytes(eng.params)
     del eng
-    left = torch.cuda.memory_allocated() - live_at_entry
+    left = torch.cuda.memory_allocated() - live_at_entry - kept
     log(f"freed {arch}/{label} without gc: {left / 1e9:.6g} GB above the "
-        f"run's entry still allocated")
+        f"run's entry still allocated{' beside the kept weights' * bool(kept)}")
     assert left < 0.25e9, (label, "engine not freed without gc", left)
     torch.cuda.empty_cache()
     return reqs, launches, result, cfg.n_layers
@@ -4412,6 +4636,296 @@ def family_train_phase():
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the long-context shapes at full length on mistral-nemo-12b
+
+
+def long_requests(vocab):
+    """Phase 18 (a)'s 2 seeded 32,704-token prompts of 64 new tokens."""
+    from repro_torch.serving import Request, SamplingParams
+
+    rng = np.random.default_rng(SEED + 18)
+    return [Request(prompt=[int(t) for t in rng.integers(0, vocab,
+                                                         LONG_PROMPT)],
+                    sampling=SamplingParams(max_new=LONG_NEW), rid=i)
+            for i in range(LONG_SLOTS)]
+
+
+@contextlib.contextmanager
+def stage1_recorded():
+    """Record the stage-1 candidates of every call in the block: the
+    kernel wrappers' (``kernels/ops.py``) and the plain routes'
+    (``core/topk.stage1_topk``).  Yields ``take()``, which returns the
+    calls since the last ``take`` as (values, int32 indices), each
+    (matrices, rows, candidates) with the calls' rows concatenated in
+    call order (layer by layer), and forgets them."""
+    import repro_torch.core.topk as topk
+    from repro_torch.kernels import ops as kops
+
+    calls, saved = [], []
+    for mod, name in ((kops, "bacam_paged_scores_topk"),
+                      (kops, "bacam_attention_scores_topk_packed"),
+                      (topk, "stage1_topk")):
+        fn = getattr(mod, name)
+
+        def recorded(*a, _fn=fn, **kw):
+            out = _fn(*a, **kw)
+            calls.append(out)
+            return out
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, recorded)
+
+    def take():
+        first = calls[0][0]  # (B, H_kv, R, N) or (B * H_kv, R, N)
+        m = first.shape[0] * (first.shape[1] if first.dim() == 4 else 1)
+        n = first.shape[-1]
+        out = (torch.cat([v.reshape(m, -1, n) for v, _ in calls], 1),
+               torch.cat([i.reshape(m, -1, n).to(torch.int32)
+                          for _, i in calls], 1))
+        calls.clear()
+        return out
+
+    try:
+        yield take
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def fill_long(caches, gen):
+    """Seeded contents, in place, of camformer's pools or caches: random
+    packed-key words, N(0, 1) values at bf16, and each kv head's
+    ``k_scale`` the mean |x| of a 4,096-sample N(0, 1) draw (about
+    0.8)."""
+    for cache in caches:
+        for name, t in cache.items():
+            if name == "k_scale":
+                t.copy_(torch.randn((*t.shape, 4096), generator=gen,
+                                    device="cuda").abs().mean(-1))
+            elif t.dtype == torch.int32:
+                t.copy_(long_words(gen, *t.shape))
+            else:
+                t.normal_(generator=gen)
+
+
+def long_routes(cfg, step_of, routes, caches, row):
+    """``LONG_STEPS`` greedy decode steps of one slot from
+    ``LONG_FILLED`` through each of ``routes`` ((label, config, kernel
+    launched)) in turn, each from the same state (``k_scale`` restored;
+    the positions the steps write are written before they are read):
+    ``step_of(config)(tokens, pos, kv_len)`` returns the logits.  The
+    first route's stage-1 candidates, logits and greedy tokens are the
+    others': candidates identical at every step and layer, tokens
+    identical, logits within 1e-5 of max |logits|.  The kernel route
+    launches kernel ``row`` once a layer a step and nothing else, and no
+    plain version on the card; the others launch nothing.  Returns
+    ({route: numbers}, {row: launches})."""
+    n = cfg.n_layers
+    k_scale = [c["k_scale"].clone() for c in caches]
+    tok0 = int(np.random.default_rng(SEED + 18).integers(cfg.vocab))
+    first, out, kernel_launches = None, {}, {}
+    for label, run_cfg, kernel in routes:
+        for c, ks in zip(caches, k_scale):
+            c["k_scale"] = ks.clone()
+        step = step_of(run_cfg)
+        tok = torch.tensor([tok0], dtype=torch.int32, device="cuda")
+        toks, logits, ms, cands = [], [], [], []
+        reset_launches()
+        with stage1_recorded() as take, plain_calls_on_card() as plain, \
+                torch.no_grad():
+            for t in range(LONG_STEPS):
+                pos = torch.tensor([LONG_FILLED + t], dtype=torch.int32,
+                                   device="cuda")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg = step(tok, pos, pos + 1)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                toks.append(int(tok))
+                logits.append(lg)
+                tok = lg.argmax(-1).to(torch.int32)
+                vals, idx = take()
+                if first is None:
+                    if t == 0:  # each layer's step-1 candidates
+                        by_layer = vals.reshape(LONG_HKV, n, -1)
+                        stats = dict(
+                            distinct_scores_by_layer=[
+                                int(by_layer[:, i].unique().numel())
+                                for i in range(n)],
+                            tied_pair_share_by_layer=[
+                                round(float((by_layer[:, i, 0::2]
+                                             == by_layer[:, i, 1::2])
+                                            .float().mean()), 4)
+                                for i in range(n)])
+                    cands.append((vals.cpu(), idx.cpu()))
+                    continue
+                want_v, want_i = (x.cuda() for x in first["cands"][t])
+                assert torch.equal(vals, want_v), (label, t, "values")
+                assert torch.equal(idx, want_i), (label, t, "indices")
+                del want_v, want_i
+        launches = read_launches()
+        if kernel:
+            assert launches[row] == n * LONG_STEPS, (label, launches)
+            assert plain == {}, (label, plain)
+        assert sum(launches.values()) == (n * LONG_STEPS if kernel else 0), (
+            label, launches)
+        numbers = dict(step_ms=ms, median_step_ms=statistics.median(ms),
+                       tokens_per_s=1e3 / statistics.median(ms),
+                       tokens=toks, launches={k: v for k, v in
+                                              launches.items() if v},
+                       plain_calls_on_card=plain)
+        if first is None:
+            numbers.update(stats)
+            first = dict(cands=cands, logits=logits, toks=toks)
+        else:
+            top = max(float(x.abs().max()) for x in first["logits"])
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(logits, first["logits"]))
+            assert toks == first["toks"], (label, toks, first["toks"])
+            assert err <= 1e-5 * top, (label, err, top)
+            numbers.update(max_abs_logit_diff=err, max_abs_logit=top,
+                           candidates_identical=True, tokens_identical=True)
+        out[label] = numbers
+        if kernel:
+            kernel_launches = {LONG_ROWS[row]: launches[row]}
+    return out, kernel_launches
+
+
+def long_paged_leg(params):
+    """Phase 18 (b): long_500k on the paged pools: camformer's
+    ``md.page_specs`` with 8,192 live pages and the trash page, filled
+    from the seed (``fill_long``), one slot whose page table is a seeded
+    permutation of the pool's pages, decoded 8 steps from position
+    524,280 through ``lm_decode_paged`` on ``paged_impl="fused"``
+    (kernel 1 over 8,192 pages a layer) and on ``"gather"``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model_def, init_pools
+
+    cfg = get_config(LONG_ARCH).replace(attn_backend="camformer")
+    md = get_model_def(cfg)
+    total = torch.cuda.mem_get_info()[1]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    n_live = LONG_KEYS // LONG_PAGE
+    pools = init_pools(md.page_specs(cfg, 1 + n_live, LONG_PAGE, 1), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 180)
+    fill_long(pools, gen)
+    table = (torch.randperm(n_live, generator=gen, device="cuda") + 1).to(
+        torch.int32)[None]
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+
+    def step_of(run_cfg):
+        return lambda tok, pos, kv_len: md.decode_paged(
+            params, tok, pos, kv_len, pools, table, run_cfg)[0]
+
+    routes, launches = long_routes(
+        cfg, step_of, [("fused", cfg.replace(paged_impl="fused"), True),
+                       ("gather", cfg.replace(paged_impl="gather"), False)],
+        pools, "bacam_paged_topk_stage1")
+    line = dict(pool_gb=tensor_bytes(pools) / 1e9, fill_s=fill_s,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                mem_total_gb=total / 1e9, **routes)
+    assert line["peak_mem_gb"] * 1e9 < total, line
+    log(f"phase 18 (b) long_500k paged {LONG_ARCH}/camformer, 1 slot x "
+        f"{LONG_KEYS} positions ({n_live} pages of {LONG_PAGE}), bf16: "
+        f"{json.dumps(line)}")
+    del pools, table
+    torch.cuda.empty_cache()
+    return launches
+
+
+def long_contiguous_leg(params):
+    """Phase 18 (c): long_500k on the contiguous path, the dry run's cell:
+    camformer's ``md.cache_specs`` at one row of 524,288 positions,
+    filled from the seed, decoded 8 steps from position 524,280 through
+    ``launch/steps.make_serve_step`` with ``use_kernel`` (kernel 3 over
+    the 8 kv heads' matrices of G = 4 rows a layer) and without; the
+    caches are written in place."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import get_model_def, init_pools
+
+    cfg = get_config(LONG_ARCH).replace(attn_backend="camformer")
+    md = get_model_def(cfg)
+    total = torch.cuda.mem_get_info()[1]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    caches = init_pools(md.cache_specs(cfg, 1, LONG_KEYS), "cuda")
+    fill_long(caches, torch.Generator(device="cuda").manual_seed(SEED + 181))
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    held = [c["v"] for c in caches]
+
+    def step_of(run_cfg):
+        serve = make_serve_step(md, run_cfg)
+
+        def step(tok, pos, kv_len):
+            logits, out = serve(params, tok, pos, kv_len, caches)
+            assert all(c["v"] is h for c, h in zip(out, held)), \
+                "the cache was copied"
+            return logits
+        return step
+
+    routes, launches = long_routes(
+        cfg, step_of, [("kernel", cfg.replace(use_kernel=True), True),
+                       ("plain", cfg.replace(use_kernel=False), False)],
+        caches, "bacam_topk_stage1")
+    line = dict(cache_gb=tensor_bytes(caches) / 1e9, fill_s=fill_s,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                mem_total_gb=total / 1e9, **routes)
+    assert line["peak_mem_gb"] * 1e9 < total, line
+    log(f"phase 18 (c) long_500k contiguous {LONG_ARCH}/camformer, 1 x "
+        f"{LONG_KEYS} positions, bf16: {json.dumps(line)}")
+    del caches, held
+    torch.cuda.empty_cache()
+    return launches
+
+
+def long_context_phase():
+    """Phase 18: mistral-nemo-12b at full width and depth, its bf16
+    weights drawn once (by leg (a)'s engine) for three legs, each leg's
+    cache freed before the next: (a) prefill_32k / decode_32k on dense,
+    the engine ``python -m repro_torch.launch.serve --arch
+    mistral-nemo-12b --backend dense --max-batch 2 --max-len 32768
+    --prefill-chunk 4096`` builds, serving 2 prompts of 32,704 tokens
+    (8 chunks of 4,096 a prefill tick) to 64 new tokens with
+    ``serve_run``'s checks; (b) ``long_paged_leg``; (c)
+    ``long_contiguous_leg``.  Returns the legs' launches, in the rows of
+    ``LONG_ROWS``."""
+    t0 = time.perf_counter()
+    live = torch.cuda.memory_allocated()
+    gc.collect()
+    log(f"phase 18 entry: {live / 1e9:.6g} GB live, "
+        f"{(live - torch.cuda.memory_allocated()) / 1e9:.6g} GB of it freed "
+        f"by gc.collect()")
+    keep = {}
+    _, launches, result, _ = serve_run(
+        "dense", arch=LONG_ARCH, profile=False, requests=long_requests,
+        chunks=LONG_LEN // LONG_CHUNK, keep=keep,
+        flags=["--max-batch", str(LONG_SLOTS), "--max-len", str(LONG_LEN),
+               "--prefill-chunk", str(LONG_CHUNK)])
+    log(f"phase 18 (a) prefill_32k + decode_32k {LONG_ARCH}/dense, "
+        f"{LONG_SLOTS} x {LONG_PROMPT}-token prompts in chunks of "
+        f"{LONG_CHUNK}, {LONG_NEW} new tokens: " + json.dumps({
+            k: result[k] for k in (
+                "ttft_p50_s", "ttft_max_s", "decode_tokens_per_s", "pool_gb",
+                "peak_mem_gb", "build_peak_mem_gb", "build_s", "wall_s",
+                "ticks", "prefill_ticks", "readbacks", "launches")}))
+    runs = [{LONG_ROWS.get(k, k): v for k, v in launches.items()}]
+    log(f"phase 18 elapsed {time.perf_counter() - t0:.1f}s: (a)")
+    params = keep.pop("params")
+    runs.append(long_paged_leg(params))
+    log(f"phase 18 elapsed {time.perf_counter() - t0:.1f}s: (b)")
+    runs.append(long_contiguous_leg(params))
+    del params
+    torch.cuda.empty_cache()
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.6g} GB still allocated")
+    return runs
+
+
 def kernel_instance(mangled):
     """``name<N, ...>`` of a mangled ``..._kernel<N, ...>`` (Itanium: a name
     is its length, then its characters; int and bool template arguments
@@ -4509,7 +5023,7 @@ def main():
         f" under the kernels' timing: L2 flushed, CUDA events)")
     rows = (kernel_phase(flush) + assigned_kernel_phase(flush)
             + contiguous_kernel_phase(flush) + train_kernel_phase(flush)
-            + families_kernel_phase(flush))
+            + families_kernel_phase(flush) + long_kernel_phase(flush))
     del flush
     log(f"gqa3 parity: {json.dumps(gqa3_kernel_phase())}")
     parity_phase()
@@ -4553,6 +5067,8 @@ def main():
     log(f"elapsed {time.perf_counter() - t0:.1f}s: assigned LMs")
     runs += family_train_phase()
     log(f"elapsed {time.perf_counter() - t0:.1f}s: families trained")
+    runs += long_context_phase()
+    log(f"elapsed {time.perf_counter() - t0:.1f}s: long contexts")
     for row in rows:  # launches over every path run
         row["launches"] = sum(run.get(row["name"], 0) for run in runs)
         if row["path"] != "none":

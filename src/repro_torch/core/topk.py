@@ -20,8 +20,8 @@ import math
 
 import torch
 
-__all__ = ["NEG_INF", "stable_topk", "single_stage_topk", "two_stage_topk",
-           "topk_recall", "hoeffding_drop_bound"]
+__all__ = ["NEG_INF", "stable_topk", "single_stage_topk", "stage1_topk",
+           "two_stage_topk", "topk_recall", "hoeffding_drop_bound"]
 
 # Finite "minus infinity" for masked scores: never picked over a real
 # score, finite in float32/bfloat16 arithmetic.
@@ -50,6 +50,26 @@ def single_stage_topk(scores: torch.Tensor, k: int,
     return v, i.to(torch.int32)
 
 
+def stage1_topk(scores: torch.Tensor, group_size: int = 16,
+                stage1_k: int = 2, where: torch.Tensor | None = None):
+    """Stage 1 of ``two_stage_topk``: the top ``stage1_k`` scores of each
+    group of ``group_size`` keys over the last axis (padded with NEG_INF
+    to a group multiple), ties to the lowest index.  Returns (cand_v
+    (..., groups * stage1_k) float32, cand_i int64 key indices), group
+    by group: the candidates the stage-1 kernels write."""
+    s = _masked(scores, where)
+    *lead, n = s.shape
+    pad = (-n) % group_size
+    if pad:
+        s = torch.nn.functional.pad(s, (0, pad), value=NEG_INF)
+    groups = (n + pad) // group_size
+    v1, i1 = stable_topk(s.reshape(*lead, groups, group_size), stage1_k)
+    base = (torch.arange(groups, dtype=torch.int64, device=s.device)
+            * group_size)[:, None]
+    return (v1.reshape(*lead, groups * stage1_k),
+            (i1 + base).reshape(*lead, groups * stage1_k))
+
+
 def two_stage_topk(scores: torch.Tensor, k: int = 32, group_size: int = 16,
                    stage1_k: int = 2, where: torch.Tensor | None = None):
     """Two-stage hierarchical top-k over the last axis.
@@ -59,20 +79,9 @@ def two_stage_topk(scores: torch.Tensor, k: int = 32, group_size: int = 16,
     float32, indices (..., k) int32 into N); short candidate sets are
     padded with NEG_INF values and clamped indices.
     """
-    s = _masked(scores, where)
-    *lead, n = s.shape
-    pad = (-n) % group_size
-    if pad:
-        s = torch.nn.functional.pad(s, (0, pad), value=NEG_INF)
-    groups = (n + pad) // group_size
-
-    v1, i1 = stable_topk(s.reshape(*lead, groups, group_size), stage1_k)
-    base = (torch.arange(groups, dtype=torch.int64, device=s.device)
-            * group_size)[:, None]
-    cand_v = v1.reshape(*lead, groups * stage1_k)
-    cand_i = (i1 + base).reshape(*lead, groups * stage1_k)
-
-    k_eff = min(k, groups * stage1_k)
+    n = scores.shape[-1]
+    cand_v, cand_i = stage1_topk(scores, group_size, stage1_k, where)
+    k_eff = min(k, cand_v.shape[-1])
     v2, sel = stable_topk(cand_v, k_eff)
     idx = torch.gather(cand_i, -1, sel)
     if k_eff < k:  # degenerate tiny-N case: pad to a static k

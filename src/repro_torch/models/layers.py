@@ -48,8 +48,13 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     """
     d = x.shape[-1]
     half = d // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) / half)
+    # theta ** e rounded once from float64: the reference's float32 pow
+    # gives the nearest float32 at mistral's and yi's (theta, d), where
+    # torch's float32 pow is an ulp off in a few channels, which moves an
+    # angle by up to 4e-3 rad at position 5e5
+    # (tests/test_torch_long_context.py)
+    ex = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = (theta ** ex.to(torch.float64)).to(torch.float32)
     ang = positions[:, None, :, None].to(torch.float32) * freqs  # (B,1,S,h)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x[..., :half], x[..., half:]

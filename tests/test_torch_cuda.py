@@ -1540,3 +1540,76 @@ def test_adamw_update_temporaries_bounded_by_groups(cuda, monkeypatch):
     for got, want in ((params, want_p), (state["m"], want_s["m"]),
                       (state["v"], want_s["v"])):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# the long-context shapes on mistral-nemo-12b's heads (8 kv heads, G = 4,
+# head_dim 128): long_500k's 524,288 keys, prefill_32k / decode_32k's
+# 2 slots of 32,768
+LONG_KEYS, LONG_LEN, LONG_CHUNK = 524288, 32768, 4096
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_stage1_kernels_at_half_a_million_keys(cuda, paged):
+    """Kernel 1 over one slot's 8,192 pages (a permutation of the pool's)
+    and kernel 3 over 8 matrices of G = 4 rows, W = 4, bit-exact against
+    their plain versions at the first and the last of 8 decode steps from
+    position 524,280 (about 40 distinct scores: ties everywhere)."""
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    words = lambda *s: torch.randint(-2**31, 2**31 - 1, s, generator=gen,
+                                     device=cuda, dtype=torch.int32)
+    hkv, g, w = 8, 4, 4
+    n_pages = LONG_KEYS // 64
+    if paged:
+        kp = words(1 + n_pages, hkv, 64, w)
+        table = (torch.randperm(n_pages, generator=gen, device=cuda)
+                 + 1).to(torch.int32)[None]
+        q = words(1, hkv, g, w)
+    else:
+        kp, q = words(hkv, LONG_KEYS, w), words(hkv, g, w)
+    for kv in (LONG_KEYS - 7, LONG_KEYS):
+        if paged:
+            kv_len = torch.tensor([kv], dtype=torch.int32, device=cuda)
+            args = (q, kp, table, kv_len, kv_len - 1)
+            got = bdec.bacam_paged_topk_stage1(*args, d=32 * w)
+            want = bdec.bacam_paged_topk_ref(*args[:4], 32 * w,
+                                             q_pos=args[4])
+        else:
+            kv_len = torch.full((hkv,), kv, dtype=torch.int32, device=cuda)
+            args = (q, kp, (kv_len - 1)[:, None].expand(hkv, g).contiguous(),
+                    kv_len)
+            got = btk.bacam_topk_stage1(*args, d=32 * w, sq=1)
+            want = btk.bacam_topk_stage1_plain(*args, d=32 * w)
+        torch.cuda.synchronize()
+        _assert_candidates(*got, *want, 16, 2)
+        assert got[0].unique().numel() < 64
+
+
+@pytest.mark.parametrize("sq", [1, LONG_CHUNK])
+def test_flash_kernel_at_32k_keys(cuda, sq):
+    """Kernel 2 over 2 slots at kv_len 32,768 (split-KV, 512 one-page
+    splits) and kernel 2b at the last 4,096-row chunk of two
+    32,704-token prompts (q_pos 28,672; chunk tiles), bf16 pools, within
+    1e-5 of their plain versions."""
+    gen = torch.Generator(device=cuda).manual_seed(30)
+    b, hkv, g, d, page = 2, 8, 4, 128, 64
+    np_ = LONG_LEN // page
+    shape = (1 + b * np_, hkv, page, d)
+    kp = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+    vp = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+    table = (torch.randperm(b * np_, generator=gen, device=cuda)
+             + 1).to(torch.int32).reshape(b, np_)
+    kv = LONG_LEN if sq == 1 else LONG_LEN - 64
+    q_pos = kv - 1 if sq == 1 else (kv // LONG_CHUNK) * LONG_CHUNK
+    kv_len = torch.full((b,), kv, dtype=torch.int32, device=cuda)
+    qp = torch.full((b,), q_pos, dtype=torch.int32, device=cuda)
+    q = torch.randn((b, hkv, g * sq, d), generator=gen, device=cuda) \
+        * d**-0.5
+    before = pfd.launches
+    got = pfd.paged_flash_decode(q, kp, vp, table, kv_len, qp, sq=sq)
+    want = pfd.paged_flash_decode_ref(q, kp, vp, table, kv_len, qp, sq=sq)
+    torch.cuda.synchronize()
+    assert pfd.launches == before + 1
+    assert pfd.DESIGNS[pfd.plan(b, hkv, g * sq, d, d, page, np_, sq,
+                                True)[0]] == ("split-KV" if sq == 1
+                                              else "chunk tiles")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
