@@ -25,6 +25,7 @@ import torch
 from repro_torch.core import bacam
 from repro_torch.core.binarize import binarize_qk, had_scales, sign_pm1
 from repro_torch.core.topk import NEG_INF, stable_topk, two_stage_topk
+from repro_torch.utils import spans
 
 __all__ = ["AttentionSpec", "attention", "binary_paged_attention",
            "camformer_paged_attention", "seq_split_attention",
@@ -301,11 +302,13 @@ def _gather_topk(qp, kp, kv_len, q_positions, spec, d, g, window,
     step = max(1, _GATHER_WORDS // max(1, b * hkv * s_log * w))
     top_v, top_i = [], []
     for r0 in range(0, rows, step):
-        scores = bacam.hamming_scores_packed(qp[:, :, r0:r0 + step], kp, d)
-        qr = qpos[:, :, r0:r0 + step]
-        ok = (kpos < kv_len.reshape(b, 1, 1, 1)) & (kpos <= qr)
-        if window is not None:
-            ok = ok & (kpos > qr - window)
+        with spans.span("attn.cam.score"):
+            scores = bacam.hamming_scores_packed(qp[:, :, r0:r0 + step], kp,
+                                                 d)
+            qr = qpos[:, :, r0:r0 + step]
+            ok = (kpos < kv_len.reshape(b, 1, 1, 1)) & (kpos <= qr)
+            if window is not None:
+                ok = ok & (kpos > qr - window)
         v, i = two_stage_topk(scores, k=spec.k_top,
                               group_size=spec.group_size,
                               stage1_k=spec.stage1_k, where=ok)
@@ -401,7 +404,12 @@ def camformer_paged_attention(q, kp_pages, v_pages, k_scale, page_table,
     stable stage-2 top-k.  Prefill chunks (Sq > 1) and ``impl="gather"``
     gather the packed keys into logical order and run the same two-stage
     selection in plain PyTorch.  Softmax runs over the k survivors and
-    only the selected V rows are gathered from the paged pool.
+    only the selected V rows are gathered from the paged pool.  Spans
+    (``utils/spans``): ``attn.cam.kernel1`` and ``attn.cam.stage2`` on
+    the fused route; ``attn.cam.gather``, then ``_gather_topk``'s
+    ``attn.cam.score`` and ``two_stage_topk``'s ``attn.cam.stage1`` /
+    ``attn.cam.stage2`` on the gather route; ``attn.cam.context`` on
+    both.
 
     q: (B, H, Sq, D); kp_pages: (P, H_kv, page, D/32) int32; v_pages:
     (P, H_kv, page, Dv); k_scale: (B, H_kv) running key scale, or
@@ -423,30 +431,35 @@ def camformer_paged_attention(q, kp_pages, v_pages, k_scale, page_table,
     if sq == 1 and impl == "fused":
         from repro_torch.kernels import ops as kops  # local: no cycle
 
-        cand_v, cand_i = kops.bacam_paged_scores_topk(
-            qp, kp_pages, page_table, kv_len, q_positions.reshape(b),
-            d=d, group=spec.group_size, stage1_k=spec.stage1_k,
-            window=window)
-        top_v, sel = stable_topk(cand_v, min(spec.k_top, cand_v.shape[-1]))
-        top_i = torch.gather(cand_i, -1, sel)
+        with spans.span("attn.cam.kernel1"):
+            cand_v, cand_i = kops.bacam_paged_scores_topk(
+                qp, kp_pages, page_table, kv_len, q_positions.reshape(b),
+                d=d, group=spec.group_size, stage1_k=spec.stage1_k,
+                window=window)
+        with spans.span("attn.cam.stage2"):
+            top_v, sel = stable_topk(cand_v,
+                                     min(spec.k_top, cand_v.shape[-1]))
+            top_i = torch.gather(cand_i, -1, sel)
     else:
         from repro_torch.kernels.ref import paged_gather_ref
 
-        kp = paged_gather_ref(kp_pages, page_table)  # (B, H_kv, S_log, W)
+        with spans.span("attn.cam.gather"):
+            kp = paged_gather_ref(kp_pages, page_table)  # (B, H_kv, S_log, W)
         top_v, top_i = _gather_topk(qp, kp, kv_len, q_positions, spec, d, g,
                                     window)
 
-    # sparse V contextualization straight from the paged pool
-    top_i = top_i.long()
-    pg = top_i // page  # logical page of each selected key (in range)
-    row = top_i % page
-    pt = page_table.long().clamp(0, v_pages.shape[0] - 1)
-    phys = torch.gather(pt[:, None, None, :].expand(b, hkv, g * sq, np_), -1,
-                        pg)  # (B, H_kv, R, K)
-    heads = torch.arange(hkv, device=q.device)[None, :, None, None]
-    v_sel = v_pages[phys, heads, row]  # (B, H_kv, R, K, Dv)
+    with spans.span("attn.cam.context"):
+        # sparse V contextualization straight from the paged pool
+        top_i = top_i.long()
+        pg = top_i // page  # logical page of each selected key (in range)
+        row = top_i % page
+        pt = page_table.long().clamp(0, v_pages.shape[0] - 1)
+        phys = torch.gather(pt[:, None, None, :].expand(b, hkv, g * sq, np_),
+                            -1, pg)  # (B, H_kv, R, K)
+        heads = torch.arange(hkv, device=q.device)[None, :, None, None]
+        v_sel = v_pages[phys, heads, row]  # (B, H_kv, R, K, Dv)
 
-    temp = _row_temps(q_scale, k_scale, hkv, g, sq)[..., None]
-    w, _ = topk_softmax_weights(top_v, temp, scale)
-    out = torch.einsum("bhrk,bhrkd->bhrd", w.to(v_pages.dtype), v_sel)
-    return out.reshape(b, h, sq, dv).to(q.dtype)
+        temp = _row_temps(q_scale, k_scale, hkv, g, sq)[..., None]
+        w, _ = topk_softmax_weights(top_v, temp, scale)
+        out = torch.einsum("bhrk,bhrkd->bhrd", w.to(v_pages.dtype), v_sel)
+        return out.reshape(b, h, sq, dv).to(q.dtype)

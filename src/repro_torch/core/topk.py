@@ -20,6 +20,8 @@ import math
 
 import torch
 
+from repro_torch.utils import spans
+
 __all__ = ["NEG_INF", "stable_topk", "single_stage_topk", "stage1_topk",
            "two_stage_topk", "topk_recall", "hoeffding_drop_bound"]
 
@@ -80,15 +82,18 @@ def two_stage_topk(scores: torch.Tensor, k: int = 32, group_size: int = 16,
     padded with NEG_INF values and clamped indices.
     """
     n = scores.shape[-1]
-    cand_v, cand_i = stage1_topk(scores, group_size, stage1_k, where)
-    k_eff = min(k, cand_v.shape[-1])
-    v2, sel = stable_topk(cand_v, k_eff)
-    idx = torch.gather(cand_i, -1, sel)
-    if k_eff < k:  # degenerate tiny-N case: pad to a static k
-        v2 = torch.nn.functional.pad(v2, (0, k - k_eff), value=NEG_INF)
-        idx = torch.nn.functional.pad(idx, (0, k - k_eff))
-    # padded-region indices are clamped into range (their values are NEG_INF)
-    return v2, torch.clamp(idx, max=n - 1).to(torch.int32)
+    with spans.span("attn.cam.stage1"):
+        cand_v, cand_i = stage1_topk(scores, group_size, stage1_k, where)
+    with spans.span("attn.cam.stage2"):
+        k_eff = min(k, cand_v.shape[-1])
+        v2, sel = stable_topk(cand_v, k_eff)
+        idx = torch.gather(cand_i, -1, sel)
+        if k_eff < k:  # degenerate tiny-N case: pad to a static k
+            v2 = torch.nn.functional.pad(v2, (0, k - k_eff), value=NEG_INF)
+            idx = torch.nn.functional.pad(idx, (0, k - k_eff))
+        # padded-region indices are clamped into range (their values are
+        # NEG_INF)
+        return v2, torch.clamp(idx, max=n - 1).to(torch.int32)
 
 
 def topk_recall(selected_idx: torch.Tensor,

@@ -75,6 +75,7 @@ from repro_torch.serving.kv_cache import PagedKVCache, pages_for
 from repro_torch.serving.request import (Request, RequestOutput, RequestState,
                                          SamplingParams)
 from repro_torch.serving.scheduler import Admission, Emit, Scheduler, TickPlan
+from repro_torch.utils import spans
 
 __all__ = ["Request", "SamplingParams", "RequestState", "RequestOutput",
            "Admission", "Scheduler", "ServeEngine"]
@@ -230,6 +231,7 @@ class ServeEngine:
         self.ticks = 0  # decode steps dispatched
         self.tick_errors = 0  # device ticks that failed and were contained
         self.last_error: Optional[str] = None
+        self._tick_index = 0  # ticks started: the spans' ``tick``
 
     # ------------------------------------------------------------------
     # scheduler delegation
@@ -281,6 +283,11 @@ class ServeEngine:
     def prefill_tokens(self) -> int:
         """Prompt tokens materialized through chunked-prefill steps."""
         return self.sched.prefill_tokens
+
+    @property
+    def prefill_positions(self) -> int:
+        """Positions the prefill steps computed, padding included."""
+        return self.sched.prefill_positions
 
     @property
     def prefill_ticks(self) -> int:
@@ -350,6 +357,7 @@ class ServeEngine:
         consult ``tick.delay``.  Under tp > 1 rank 0 then reads the clock
         and broadcasts the tick's inputs; the followers, which received
         them in ``follow()``, draw nothing."""
+        self._tick_index += 1
         self.faults.advance()
         if self._sync is not None and not self._sync.leader:
             return
@@ -428,40 +436,44 @@ class ServeEngine:
                       samp):
         batch = {"tokens": tokens, "lens": lens, "offsets": offsets,
                  "scale_base": scale_base}
-        if self.spec_k:
-            fn = speculate.build_spec_prefill(self.md, self.cfg,
-                                               self._draft_cfg, hot)
-            first, self.caches, self.draft_caches = fn(
-                self.params, batch, self.caches, self.draft_caches, pt,
-                *samp)
-            return first
-        logits, self.caches = self.md.prefill_paged(self.params, batch,
-                                                    self.caches, pt, self.cfg)
-        return self._sample(logits, hot, samp)
+        with spans.span("model.prefill"):
+            if self.spec_k:
+                fn = speculate.build_spec_prefill(self.md, self.cfg,
+                                                   self._draft_cfg, hot)
+                first, self.caches, self.draft_caches = fn(
+                    self.params, batch, self.caches, self.draft_caches, pt,
+                    *samp)
+                return first
+            logits, self.caches = self.md.prefill_paged(
+                self.params, batch, self.caches, pt, self.cfg)
+            return self._sample(logits, hot, samp)
 
     def _decode_step(self, tok_prev, fresh, fresh_mask, live_mask, pos,
                      kv_len, pt, base, hot, samp):
         # merge the token state on the device: rows that finished prefill
         # THIS tick take their fresh first token, continuing rows the
         # previous step's output, inert rows 0
-        tokens = torch.where(live_mask,
-                             torch.where(fresh_mask, fresh, tok_prev),
-                             torch.zeros_like(tok_prev))
-        logits, self.caches = self.md.decode_paged(
-            self.params, tokens, pos, kv_len, self.caches, pt, self.cfg,
-            base=base)
-        return self._sample(logits, hot, samp)
+        with spans.span("model.decode"):
+            tokens = torch.where(live_mask,
+                                 torch.where(fresh_mask, fresh, tok_prev),
+                                 torch.zeros_like(tok_prev))
+            logits, self.caches = self.md.decode_paged(
+                self.params, tokens, pos, kv_len, self.caches, pt, self.cfg,
+                base=base)
+            return self._sample(logits, hot, samp)
 
     def _spec_step(self, fresh, fresh_mask, live_mask, pos, n_tok, pt, base,
                    hot, samp):
         """One speculative tick; returns the (B, m + 1) pack and updates
         the token buffer and both pools."""
-        fn = speculate.build_spec_step(self.md, self.cfg, self._draft_cfg,
-                                       self.spec_k + 1, hot)
-        packed, self._tok_buf, self.caches, self.draft_caches = fn(
-            self.params, self._tok_buf, fresh, fresh_mask, live_mask, pos,
-            n_tok, self.caches, self.draft_caches, pt, base, *samp)
-        return packed
+        with spans.span("model.spec"):
+            fn = speculate.build_spec_step(self.md, self.cfg,
+                                           self._draft_cfg, self.spec_k + 1,
+                                           hot)
+            packed, self._tok_buf, self.caches, self.draft_caches = fn(
+                self.params, self._tok_buf, fresh, fresh_mask, live_mask,
+                pos, n_tok, self.caches, self.draft_caches, pt, base, *samp)
+            return packed
 
     def _start_readback(self, tok: torch.Tensor) -> _Readback:
         if tok.is_cuda:
@@ -474,14 +486,22 @@ class ServeEngine:
 
     @torch.no_grad()
     def _dispatch(self, plan: TickPlan) -> _InFlight:
-        """Enqueue one tick's device work; returns unread token handles."""
-        self.faults.raise_if("step.error")  # chaos: the step dies
-        if self.mesh is None:
-            return self._dispatch_step(plan)
-        from repro_torch.launch.mesh import tp_scope
+        """Enqueue one tick's device work; returns unread token handles.
+        The ``engine.dispatch`` span includes any wait on a full launch
+        queue; the requests whose last prefill chunk it carried are
+        stamped ``prefill_enqueued`` at its end."""
+        with spans.span("engine.dispatch"):
+            self.faults.raise_if("step.error")  # chaos: the step dies
+            if self.mesh is None:
+                inflight = self._dispatch_step(plan)
+            else:
+                from repro_torch.launch.mesh import tp_scope
 
-        with tp_scope(self.mesh):  # attention gathers its heads
-            return self._dispatch_step(plan)
+                with tp_scope(self.mesh):  # attention gathers its heads
+                    inflight = self._dispatch_step(plan)
+        for e in inflight.prefill_emit:
+            spans.stamp(e.req.rid, "prefill_enqueued")
+        return inflight
 
     def _dispatch_step(self, plan: TickPlan) -> _InFlight:
         for src, dst in plan.forks:  # COW copies BEFORE any write
@@ -545,14 +565,17 @@ class ServeEngine:
     def _read(self, rb: _Readback) -> np.ndarray:
         """THE host<->device readback (token ids only); instrumented so
         benchmarks report the host-idle fraction and tests can assert one
-        readback per tick."""
-        t0 = time.perf_counter()
+        readback per tick.  The two clock reads of ``blocked_s`` are the
+        ``engine.readback`` span's."""
+        t0 = time.perf_counter_ns()
         if rb.event is not None:
             rb.event.synchronize()
             out = rb.host.numpy().copy()
         else:
             out = rb.device.cpu().numpy().copy()
-        self.blocked_s += time.perf_counter() - t0
+        t1 = time.perf_counter_ns()
+        self.blocked_s += (t1 - t0) / 1e9
+        spans.record("engine.readback", t0, t1)
         self.readbacks += 1
         return out
 
@@ -568,28 +591,30 @@ class ServeEngine:
         self._settling = list(inflight.prefill_emit + inflight.decode_emit)
         if inflight.prefill_emit:
             vals = self._read(inflight.prefill_tok)
-            for e in inflight.prefill_emit:
+            with spans.span("engine.ingest"):
+                for e in inflight.prefill_emit:
+                    out = self.sched.ingest(e, int(vals[e.slot]))
+                    self._settling.pop(0)
+                    if out is not None:
+                        events.append(out)
+        if not inflight.decode_emit:
+            return events
+        vals = self._read(inflight.decode_tok)
+        with spans.span("engine.ingest"):
+            if inflight.spec:
+                groups: "dict[int, List[Emit]]" = {}
+                for e in inflight.decode_emit:  # slot-major, consecutive
+                    groups.setdefault(e.slot, []).append(e)
+                for slot, ems in groups.items():  # insertion == settle order
+                    events.extend(self.sched.resolve_spec(
+                        slot, tuple(ems), vals[slot], int(vals[slot, -1])))
+                    del self._settling[:len(ems)]
+                return events
+            for e in inflight.decode_emit:
                 out = self.sched.ingest(e, int(vals[e.slot]))
                 self._settling.pop(0)
                 if out is not None:
                     events.append(out)
-        if not inflight.decode_emit:
-            return events
-        vals = self._read(inflight.decode_tok)
-        if inflight.spec:
-            groups: "dict[int, List[Emit]]" = {}
-            for e in inflight.decode_emit:  # slot-major, consecutive
-                groups.setdefault(e.slot, []).append(e)
-            for slot, ems in groups.items():  # insertion == settle order
-                events.extend(self.sched.resolve_spec(
-                    slot, tuple(ems), vals[slot], int(vals[slot, -1])))
-                del self._settling[:len(ems)]
-            return events
-        for e in inflight.decode_emit:
-            out = self.sched.ingest(e, int(vals[e.slot]))
-            self._settling.pop(0)
-            if out is not None:
-                events.append(out)
         return events
 
     # ------------------------------------------------------------------
@@ -614,6 +639,20 @@ class ServeEngine:
         log.warning("device tick failed (%s); failing in-flight requests "
                     "and continuing", self.last_error, exc_info=exc)
         return self.sched.fail_active(self.last_error)
+
+    def _plan(self, sp, **kw) -> TickPlan:
+        """``sched.plan_tick`` inside the ``engine.plan`` span; the tick's
+        live prefill and decode rows go on ``sp``, its ``engine.poll``
+        span."""
+        with spans.span("engine.plan"):
+            plan = self.sched.plan_tick(**kw)
+        if spans.enabled():
+            pf, dc = plan.prefill, plan.decode
+            sp.set(prefill_rows=0 if pf is None
+                   else int(np.count_nonzero(pf.lens)),
+                   decode_rows=0 if dc is None
+                   else int(np.count_nonzero(dc.live)))
+        return plan
 
     @staticmethod
     def _plan_emits(plan: TickPlan) -> List[Emit]:
@@ -650,9 +689,10 @@ class ServeEngine:
     def step(self) -> List[RequestOutput]:
         """One SYNCHRONOUS engine tick: plan, dispatch, read."""
         self._tick_start("step")
-        plan = self.sched.plan_tick()
-        events = self.sched.take_events()
-        events.extend(self._run_plan(plan))
+        with spans.span("engine.poll", tick=self._tick_index) as sp:
+            plan = self._plan(sp)
+            events = self.sched.take_events()
+            events.extend(self._run_plan(plan))
         return events
 
     def prefill(self, admitted: Optional[List[Admission]] = None
@@ -669,9 +709,10 @@ class ServeEngine:
 
     def _prefill_tick(self) -> List[RequestOutput]:
         self._tick_start("prefill")
-        plan = self.sched.plan_tick(admit=False, decode=False)
-        events = self.sched.take_events()
-        events.extend(self._run_plan(plan))
+        with spans.span("engine.poll", tick=self._tick_index) as sp:
+            plan = self._plan(sp, admit=False, decode=False)
+            events = self.sched.take_events()
+            events.extend(self._run_plan(plan))
         return events
 
     def _fault_delay(self) -> float:
@@ -687,39 +728,41 @@ class ServeEngine:
         if self.mode == "sync":
             return self.step() if self.has_work else []
         self._tick_start("poll")
-        inflight = None
-        events: List[RequestOutput] = []
-        if self.has_work:
-            plan = self.sched.plan_tick()
-            events.extend(self.sched.take_events())
-            self._check_plan(plan)
-            err = None
-            try:
-                inflight = self._dispatch(plan)
-            except Exception as e:
-                err = e
-            err = self._agree(err)
-            if err is not None:
-                events.extend(self._fail_tick(err, self._plan_emits(plan)))
-                return events
-        pending, self._pending = self._pending, None
-        if pending is not None:
-            err = None
-            try:
-                read = self._collect(pending)
-            except Exception as e:
-                err = e
-            err = self._agree(err)
-            if err is not None:
-                unsettled = list(self._settling)
-                if inflight is not None:  # the new tick dies with the device
-                    unsettled.extend(inflight.prefill_emit
-                                     + inflight.decode_emit)
-                events.extend(self._fail_tick(err, unsettled))
-                return events
-            events.extend(read)
-        self._pending = (None if inflight is None or inflight.empty
-                         else inflight)
+        with spans.span("engine.poll", tick=self._tick_index) as sp:
+            inflight = None
+            events: List[RequestOutput] = []
+            if self.has_work:
+                plan = self._plan(sp)
+                events.extend(self.sched.take_events())
+                self._check_plan(plan)
+                err = None
+                try:
+                    inflight = self._dispatch(plan)
+                except Exception as e:
+                    err = e
+                err = self._agree(err)
+                if err is not None:
+                    events.extend(self._fail_tick(err,
+                                                  self._plan_emits(plan)))
+                    return events
+            pending, self._pending = self._pending, None
+            if pending is not None:
+                err = None
+                try:
+                    read = self._collect(pending)
+                except Exception as e:
+                    err = e
+                err = self._agree(err)
+                if err is not None:
+                    unsettled = list(self._settling)
+                    if inflight is not None:  # the new tick dies with it
+                        unsettled.extend(inflight.prefill_emit
+                                         + inflight.decode_emit)
+                    events.extend(self._fail_tick(err, unsettled))
+                    return events
+                events.extend(read)
+            self._pending = (None if inflight is None or inflight.empty
+                             else inflight)
         return events
 
     def stream(self, *requests: Request) -> Iterator[RequestOutput]:

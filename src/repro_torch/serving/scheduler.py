@@ -51,6 +51,7 @@ from repro_torch.serving import sampler as S
 from repro_torch.serving.kv_cache import (NO_MATCH, TRASH_PAGE, PagedKVCache,
                                     pages_for)
 from repro_torch.serving.request import Request, RequestOutput, RequestState
+from repro_torch.utils import spans
 
 __all__ = ["Admission", "Emit", "PrefillChunk", "DecodeTick", "TickPlan",
            "Scheduler", "RejectionError", "QueueFullError"]
@@ -183,6 +184,9 @@ class Scheduler:
         self.timeouts = 0  # deadline/queue-timeout expiries (host-side)
         self.rejections = 0  # admission-control refusals (submit + reject)
         self.prefill_tokens = 0  # prompt tokens materialized via chunks
+        self.prefill_positions = 0  # positions the prefill steps compute:
+        #  max_batch x the chunk's padded length a tick, so
+        #  prefill_tokens / prefill_positions is the live share of them
         self.prefill_ticks = 0  # ticks that carried a prefill chunk
         #  (gateway /metrics + serve_slo: TTFT attribution — a TTFT
         #   regression with flat chunk counters is a decode/queue problem,
@@ -278,6 +282,7 @@ class Scheduler:
         req._admitted_once = False
         self._arrival += 1
         self.queue.append(req)
+        spans.stamp(req.rid, "submit")
         return req.rid
 
     def cancel(self, rid: int) -> Optional[RequestOutput]:
@@ -428,6 +433,7 @@ class Scheduler:
             self.top_ps[slot] = sp.top_p
             self.keys[slot] = S.request_key(self.seed, req.rid)
             self._pending_forks.extend(forks)  # drained by plan_tick
+            spans.stamp(req.rid, "admit")
             admitted.append(Admission(
                 slot, req, len(req.tokens), match.matched, tuple(forks)))
         # never-fit requests are rejected at submit() now, so a queue that
@@ -504,6 +510,7 @@ class Scheduler:
                 hot = hot or self.temps[i] > 0
                 self.kv.commit_pages(self.kv.owned(i))
         self.prefill_tokens += sum(len(c) for c in chunks.values())
+        self.prefill_positions += b * s
         self.prefill_ticks += 1
         table = np.where(lens[:, None] > 0, self.kv.table, TRASH_PAGE)
         return PrefillChunk(tokens, lens, offsets, scale_base, table,
@@ -651,6 +658,8 @@ class Scheduler:
         if req.state.is_terminal or idx != len(req.tokens):
             return None  # cancelled / stopped earlier: drop the sample
         req.tokens.append(token)
+        if idx == 0:
+            spans.stamp(req.rid, "first_token")
         reason = None
         if token in req.sampling.stop:
             reason = "stop"
